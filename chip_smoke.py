@@ -7,25 +7,37 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 
 1. device  — requires CUDA, prints the card's name and power limit,
              turns TF32 off for matmuls and cuDNN.
-2. build   — builds both CUDA kernels from src/repro_torch/kernels/csrc
-             with nvcc for sm_90a (one nvcc per source, in parallel).
+2. build   — builds the four CUDA kernels from src/repro_torch/kernels/csrc
+             with nvcc for sm_90a (one nvcc per source, in parallel) and
+             prints ptxas' register and spill lines.
 3. kernels — holds each kernel against its plain PyTorch version at the
-             main path's shapes, in bf16 (2e-2) and float32 (2e-5), and
-             times kernel, plain version and SDPA (the yardstick).
-4. model   — granite-3-2b at full width, 2 layers, float32: prefill and
-             decode logits on the kernel path (default impl) against
-             impl="dense", at 2e-3.
-5. serve   — the main path: full granite-3-2b (40 layers, bf16, random
-             weights from a seed) served by DeepRT through
-             build_live_scheduler, one prefill and one decode category;
-             checks admission, conservation, zero decode compiles after
-             warm-up, and that both kernels launched while serving.
+             main path's shapes, in bf16 (2e-2) and float32 (2e-5): the
+             two attention kernels at granite-3-2b's and recurrentgemma-
+             9b's shapes, wkv6 at rwkv6-1.6b's, rglru_scan at
+             recurrentgemma-9b's; times kernel, plain version and, for
+             attention, SDPA (the yardstick).
+4. model   — granite-3-2b, rwkv6-1.6b and recurrentgemma-9b at full width,
+             2-3 layers, float32: prefill and decode logits on the kernel
+             path (default impl) against impl="dense", and decode against
+             the full forward, at 2e-3 (recurrentgemma with a 64-token
+             window, so the ring cache wraps).
+5. serve   — full granite-3-2b (40 layers, bf16, random weights from a
+             seed) served by DeepRT through build_live_scheduler, one
+             prefill and one decode category; checks admission,
+             conservation, zero decode compiles after warm-up, and that
+             both attention kernels launched while serving.
+6. serve_multitenant — the main path: the same over full granite-3-2b,
+             rwkv6-1.6b and recurrentgemma-9b from one engine and one
+             DeepRT, a prefill and a decode category per model, with all
+             four kernels launched while serving (the kernels line's
+             launch counts are this run's).
 
 Before the last line it prints the nvidia-smi line and one JSON object
 with a row per kernel; the last line is the device record.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -35,6 +47,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 MID = "granite-3-2b"
+RWKV = "rwkv6-1.6b"
+RGEMMA = "recurrentgemma-9b"
+# Decode seq per model in the multi-tenant serve: recurrentgemma's runs
+# past its 2048-slot ring, as a user of a 2048-window model would. Its
+# profiled decode step attends to a full ring (the engine presents one
+# for prefix-mode steps), so its WCET covers a full window's attention.
+DECODE_SEQ = {MID: 2048, RWKV: 2048, RGEMMA: 4096}
+PREFILL_SEQ = 512
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; fp32 FMA
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -280,16 +300,196 @@ def phase_kernels(torch, report):
     log(f"flash timed B={b} S={s} bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
         f"({nbytes} bytes, {flops} flops)")
+    attention_at_recurrentgemma_shapes(torch, gen, F)
+    recurrence_kernels(torch, report)
     log(f"launch counters after the kernels phase: {ops.launch_counts()}")
 
 
-def phase_model(torch):
+def attention_at_recurrentgemma_shapes(torch, gen, F):
+    """Both attention kernels at recurrentgemma-9b's swa shapes: head dim
+    256, one kv head for 16 query heads (MQA), window 2048; decode over a
+    2048-slot ring with -1 sentinels, as the served arena presents it."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    h, kv, d, window = 16, 1, 256, 2048
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for b in (1, 8):
+            q = torch.randn((b, PREFILL_SEQ, h, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
+            got = fk.flash_attention(q, k, v, causal=True, window=window)
+            want = fk.flash_attention_plain(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            err = assert_close(f"flash rg B={b} {dtype_name}", got, want, TOL[dtype_name])
+            log(f"flash {dtype_name} B={b} S={PREFILL_SEQ} H={h} KV={kv} D={d} causal "
+                f"window={window}: max_abs_err={err:.3e}")
+        b, s = 8, 2048
+        cursors = [4095, 3000, 2047, 2100, 5000, 2300, 2048, 9000]
+        q, ck, cv, cur, pos, valid, act = decode_inputs(
+            torch, b, s, h, kv, d, dtype, gen, cursors=cursors, ring=True,
+            active=[1, 1, 1, 0, 1, 1, 1, 1])
+        got = dk.decode_attention(q, ck, cv, cur, pos, valid, act, window=window)
+        want = dk.decode_attention_plain(q, ck, cv, cur, pos, valid, act, window=window)
+        torch.cuda.synchronize()
+        err = assert_close(f"decode rg ring {dtype_name}", got, want, TOL[dtype_name])
+        if bool(got[~act].float().abs().max() != 0):
+            raise AssertionError("decode rg ring: a dead row is not exact 0")
+        log(f"decode {dtype_name} B={b} S={s} H={h} KV={kv} D={d} [ring, -1 sentinels, "
+            f"window {window}, a dead row]: max_abs_err={err:.3e}")
+    # Times at these shapes (bf16), for the record beside granite's.
+    dtype = torch.bfloat16
+    b = 8
+    q = torch.randn((b, PREFILL_SEQ, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
+    per_copy = (q.numel() + 2 * k.numel()) * q.element_size()
+    inputs = [(q, k, v)] + [(q.clone(), k.clone(), v.clone())
+                            for _ in range(n_copies(per_copy) - 1)]
+    ms = time_ms(lambda q_, k_, v_: fk.flash_attention(q_, k_, v_, window=window), inputs)
+    lib_inputs = [tuple(t.transpose(1, 2).contiguous() for t in inp) for inp in inputs]
+    lib_ms = time_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_, k_, v_, is_causal=True, enable_gqa=True), lib_inputs)
+    log(f"flash timed B={b} S={PREFILL_SEQ} H={h} KV={kv} D={d} bf16 causal window={window}: "
+        f"kernel {ms:.4f} ms, sdpa {lib_ms:.4f} ms")
+    base = decode_inputs(torch, b, 2048, h, kv, d, dtype, gen, cursors=[4095] * b, ring=True)
+    qd, ck, cv, cur, pos, valid, act = base
+    per_copy = 2 * ck.numel() * ck.element_size()
+    inputs = [base] + [(qd, ck.clone(), cv.clone(), cur, pos, valid, act)
+                       for _ in range(n_copies(per_copy) - 1)]
+    ms = time_ms(lambda *a: dk.decode_attention(*a, window=window), inputs)
+    log(f"decode timed B={b} S=2048 H={h} KV={kv} D={d} bf16 ring window={window}: "
+        f"kernel {ms:.4f} ms ({live_slots(cur, pos, valid, act, window)} live slots)")
+
+
+def wkv6_inputs(torch, gen, b, s, h, k, dtype, w_dtype, with_state):
+    """The reference tests' distributions: r/k/v scaled 0.5, w in
+    (0.45, 0.95), u and the state scaled 0.1."""
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    r, kk, v = ((rn(b, s, h, k) * 0.5).to(dtype) for _ in range(3))
+    w = (torch.sigmoid(rn(b, s, h, k)) * 0.5 + 0.45).to(w_dtype)
+    u = (rn(h, k) * 0.1).to(dtype)
+    state = rn(b, h, k, k) * 0.1 if with_state else None
+    return r, kk, v, w, u, state
+
+
+def rglru_inputs(torch, gen, b, s, d, dtype, with_h0):
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    a = (torch.sigmoid(rn(b, s, d)) * 0.5 + 0.45).to(dtype)
+    x = (rn(b, s, d) * 0.1).to(dtype)
+    return a, x, (rn(b, d) if with_h0 else None)
+
+
+def recurrence_kernels(torch, report):
+    """wkv6 at rwkv6-1.6b's shapes and rglru_scan at recurrentgemma-9b's,
+    each against its plain version, then timed at the prefill shape."""
+    from repro_torch.kernels import rglru as rk
+    from repro_torch.kernels import wkv6 as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    b, h, k = 8, 32, 64
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(s, dt, wdt, st) for s in (PREFILL_SEQ, 1, 509)
+             for dt, wdt in ((bf16, f32), (f32, f32)) for st in (False, True)]
+    for s, dt, wdt, with_state in cases:
+        r, kk, v, w, u, state = wkv6_inputs(torch, gen, b, s, h, k, dt, wdt, with_state)
+        got, last = wk.wkv6(r, kk, v, w, u, state)
+        want, want_last = wk.wkv6_plain(r, kk, v, w, u, state)
+        torch.cuda.synchronize()
+        name = "bfloat16" if dt == bf16 else "float32"
+        label = f"wkv6 B={b} S={s} H={h} K=V={k} r/k/v {name} w float32 state={with_state}"
+        err = assert_close(label, got, want, TOL[name])
+        err_s = assert_close(label + " (last state)", last, want_last, TOL[name])
+        log(f"{label}: max_abs_err out {err:.3e}, state {err_s:.3e}")
+    # Decode writes the arena's state in place: state_out is the input.
+    r, kk, v, w, u, state = wkv6_inputs(torch, gen, b, 1, h, k, bf16, f32, True)
+    want, want_last = wk.wkv6_plain(r, kk, v, w, u, state.clone())
+    got, last = wk.wkv6(r, kk, v, w, u, state, state_out=state)
+    torch.cuda.synchronize()
+    if last.data_ptr() != state.data_ptr():
+        raise AssertionError("wkv6: state_out was not written in place")
+    err = max(assert_close("wkv6 in place", got, want, TOL["bfloat16"]),
+              assert_close("wkv6 in place state", state, want_last, TOL["bfloat16"]))
+    log(f"wkv6 decode in place (state_out = state): max_abs_err={err:.3e}")
+
+    bsz, d = 8, 4096
+    cases = [(bb, s, dd, dt, h0) for bb, s, dd in ((bsz, PREFILL_SEQ, d), (bsz, 1, d), (3, 37, 520))
+             for dt in (f32, bf16) for h0 in (False, True)]
+    for bb, s, dd, dt, with_h0 in cases:
+        a, x, h0 = rglru_inputs(torch, gen, bb, s, dd, dt, with_h0)
+        got, last = rk.rglru_scan(a, x, h0)
+        want, want_last = rk.rglru_scan_plain(a, x, h0)
+        torch.cuda.synchronize()
+        name = "bfloat16" if dt == bf16 else "float32"
+        label = f"rglru_scan B={bb} S={s} D={dd} {name} h0={with_h0}"
+        err = assert_close(label, got, want, TOL[name])
+        err_h = assert_close(label + " (last h)", last, want_last, TOL[name])
+        log(f"{label}: max_abs_err h {err:.3e}, last {err_h:.3e}")
+
+    # ----- timing at the prefill shapes --------------------------------
+    # wkv6: rwkv6-1.6b's largest prefill bucket, bf16 r/k/v, f32 w, with
+    # an initial state (read once) and the last state written.
+    s = PREFILL_SEQ
+    base = wkv6_inputs(torch, gen, b, s, h, k, bf16, f32, True)
+    per_copy = sum(t.numel() * t.element_size() for t in base)
+    inputs = [base] + [tuple(t.clone() for t in base) for _ in range(n_copies(per_copy) - 1)]
+    got, _ = wk.wkv6(*base)
+    err = assert_close("wkv6 timed case", got, wk.wkv6_plain(*base)[0], TOL["bfloat16"])
+    ms = time_ms(lambda *a: wk.wkv6(*a), inputs)
+    plain_ms = time_ms(lambda *a: wk.wkv6_plain(*a), inputs, iters=3, warmup=1)
+    r, kk, v, w, u, state = base
+    nbytes = (3 * r.numel() * r.element_size() + w.numel() * 4 + u.numel() * u.element_size()
+              + r.numel() * r.element_size()  # out, in r's dtype (V = K)
+              + 2 * state.numel() * 4)  # state read and written
+    flops = 4 * k * k * b * h * s  # state update and output product, float32
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    report.setdefault("wkv6", {}).update(
+        name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
+        replaces="src/repro/kernels/wkv6.py:99", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+    )
+    log(f"wkv6 timed B={b} S={s} H={h} K=V={k} bf16/f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms ({nbytes} bytes -> "
+        f"{t_bytes:.4f} ms, {flops} fp32 flops -> {t_ops:.4f} ms); no single library call")
+    # rglru_scan: recurrentgemma-9b's largest prefill bucket, float32 gates,
+    # no h0 (the model's prefill), last h written.
+    base = rglru_inputs(torch, gen, bsz, s, d, f32, False)[:2]
+    per_copy = sum(t.numel() * t.element_size() for t in base)
+    inputs = [base] + [tuple(t.clone() for t in base) for _ in range(n_copies(per_copy) - 1)]
+    got, _ = rk.rglru_scan(*base)
+    err = assert_close("rglru timed case", got, rk.rglru_scan_plain(*base)[0], TOL["float32"])
+    ms = time_ms(lambda *a: rk.rglru_scan(*a), inputs)
+    plain_ms = time_ms(lambda *a: rk.rglru_scan_plain(*a), inputs, iters=3, warmup=1)
+    a = base[0]
+    nbytes = 3 * a.numel() * 4 + bsz * d * 4  # a, b read; h written; last h
+    flops = 2 * a.numel()
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    report.setdefault("rglru_scan", {}).update(
+        name="rglru_scan", route="cuda", source="src/repro_torch/kernels/csrc/rglru.cu",
+        replaces="src/repro/kernels/rglru.py:94", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+    )
+    log(f"rglru_scan timed B={bsz} S={s} D={d} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms ({nbytes} bytes); "
+        f"no single library call")
+
+
+def phase_model(torch, mid, n_layers, **overrides):
+    """One model at full width, ``n_layers`` deep, float32, random weights
+    from the package's own init: the kernel path (default impl) against
+    impl="dense" on the same parameters, prefill plus decode against
+    both, and decode against the full forward."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model_for
 
-    cfg = get_config(MID, n_layers=2, param_dtype="float32")
+    cfg = get_config(mid, n_layers=n_layers, param_dtype="float32", **overrides)
     m_k = model_for(cfg)
     m_d = model_for(dataclasses.replace(cfg, impl="dense"))
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -299,8 +499,9 @@ def phase_model(torch):
     with torch.no_grad():
         lk, _ = m_k.forward(params, toks)
         ld, _ = m_d.forward(params, toks)
-        err = assert_close("model forward logits", lk, ld, 2e-3)
-        log(f"model forward B={b} S={s} f32: logits {tuple(lk.shape)}, max_abs_err={err:.3e}")
+        err = assert_close(f"{mid} forward logits", lk, ld, 2e-3)
+        log(f"model {mid} {cfg.block_pattern} x{n_layers} forward B={b} S={s} f32: "
+            f"logits {tuple(lk.shape)}, max_abs_err={err:.3e}")
         max_len, n_pre, n_dec = 160, 64, 4
         caches = [m.init_cache(b, max_len, device="cuda") for m in (m_k, m_d)]
         outs = []
@@ -312,64 +513,83 @@ def phase_model(torch):
                 lg, _ = m.decode_step(params, cache, toks[:, n_pre + t], cur)
                 steps.append(lg)
             outs.append(torch.stack(steps))
-        err = assert_close("model prefill+decode logits", outs[0], outs[1], 2e-3)
+        err = assert_close(f"{mid} prefill+decode logits", outs[0], outs[1], 2e-3)
         # Decode must also agree with the full forward at those positions.
         ref = ld[:, n_pre:n_pre + n_dec].transpose(0, 1)
-        err2 = assert_close("decode vs forward", outs[0][1:], ref, 2e-3)
-    log(f"model prefill {n_pre} + {n_dec} decode steps: kernel vs dense max_abs_err={err:.3e}, "
-        f"decode vs forward {err2:.3e}")
+        err2 = assert_close(f"{mid} decode vs forward", outs[0][1:], ref, 2e-3)
+    log(f"model {mid} prefill {n_pre} + {n_dec} decode steps: kernel vs dense "
+        f"max_abs_err={err:.3e}, decode vs forward {err2:.3e}")
+    del params, caches, lk, ld
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-def phase_serve(torch, report):
+def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
+    """Serve full-width models (bf16, random weights from seed 0) from one
+    engine and one DeepRT through build_live_scheduler: per model a
+    prefill category (seq 512, batch buckets 1-8) and a decode category
+    (``decode_seq[mid]``), with ``streams[kind]`` streams each. Every
+    stream's deadline is ``deadline_factor`` x the sum over the models of
+    one decode step plus the largest prefill (profiled WCETs), its period
+    half that. Checks admission of every category, conservation, zero
+    decode step builds after warm-up, that every kernel the models run
+    was launched while serving, and well-formed outputs. Returns the
+    served run's record and launch counts."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import Category, Request
     from repro_torch.kernels import ops
     from repro_torch.serving.batcher_bridge import build_live_scheduler
     from repro_torch.serving.engine import InferenceEngine
 
-    cfg = get_config(MID)
-    pre_seq, dec_seq = 512, 2048
-    cats = [(MID, (pre_seq,), "prefill"), (MID, (dec_seq,), "decode")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"device memory allocated before the engine: {torch.cuda.memory_allocated()} bytes")
+    cfgs = {mid: get_config(mid) for mid in decode_seq}
+    cats = []
+    for mid, dec_seq in decode_seq.items():
+        cats += [(mid, (PREFILL_SEQ,), "prefill"), (mid, (dec_seq,), "decode")]
     t0 = time.perf_counter()
-    engine = InferenceEngine({MID: cfg}, seed=0, max_slots=8, device="cuda")
+    engine = InferenceEngine(cfgs, seed=0, max_slots=8, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(engine.params[MID]))
-    log(f"engine: {n_params} parameters ({cfg.param_dtype}) made on the card in "
-        f"{time.perf_counter() - t0:.3f} s; arena {engine.arena_nbytes(MID, dec_seq)} bytes")
+    for mid, cfg in cfgs.items():
+        n_params = sum(t.numel() for t in _leaves(engine.params[mid]))
+        log(f"engine: {mid} {cfg.n_layers} layers {cfg.block_pattern}, {n_params} parameters "
+            f"({cfg.param_dtype}); decode arena seq {decode_seq[mid]}: "
+            f"{engine.arena_nbytes(mid, decode_seq[mid])} bytes")
+    log(f"engine made on the card in {time.perf_counter() - t0:.3f} s")
 
     ops.reset_launch_counts()
     sched, engine, table = build_live_scheduler(
-        {MID: cfg}, cats, batch_sizes=(1, 2, 4, 8), engine=engine)
+        cfgs, cats, batch_sizes=(1, 2, 4, 8), engine=engine)
     profiling_launches = ops.launch_counts()
-    w_dec = table.wcet(MID, (dec_seq,), engine.max_slots)
-    w_pre = {bs: table.wcet(MID, (pre_seq,), bs) for bs in (1, 2, 4, 8)}
-    log(f"profiled WCET (p99 of 5 runs): decode seq {dec_seq} x {engine.max_slots} slots "
-        f"{w_dec * 1e3:.3f} ms; prefill seq {pre_seq} by batch "
-        + ", ".join(f"{bs}: {w * 1e3:.3f} ms" for bs, w in w_pre.items()))
+    wcet = {}
+    for mid, dec_seq in decode_seq.items():
+        w_dec = table.wcet(mid, (dec_seq,), engine.max_slots)
+        w_pre = {bs: table.wcet(mid, (PREFILL_SEQ,), bs) for bs in (1, 2, 4, 8)}
+        wcet[mid] = {"decode_ms": w_dec * 1e3,
+                     "prefill_ms": {bs: w * 1e3 for bs, w in w_pre.items()}}
+        log(f"profiled WCET {mid} (p99 of 5 runs): decode seq {dec_seq} x "
+            f"{engine.max_slots} slots {w_dec * 1e3:.3f} ms; prefill seq {PREFILL_SEQ} by "
+            "batch " + ", ".join(f"{bs}: {w * 1e3:.3f} ms" for bs, w in w_pre.items()))
     log(f"launches during profiling: {profiling_launches}")
 
-    # Periods and deadlines from the profiled table: every stream's
-    # deadline is 12x the cost of one decode step plus the largest
-    # prefill, its period half that (about one frame per window).
-    deadline = 12.0 * (w_dec + w_pre[8])
+    total = sum(w["decode_ms"] + w["prefill_ms"][8] for w in wcet.values()) / 1e3
+    deadline = deadline_factor * total
     period = deadline / 2
-    frames = 20
     start = sched.loop.now + 0.05
-    reqs = (
-        [Request(Category(MID, (dec_seq,)), period=period, relative_deadline=deadline,
-                 n_frames=frames, start_time=start) for _ in range(4)]
-        + [Request(Category(MID, (pre_seq,)), period=period, relative_deadline=deadline,
-                   n_frames=frames, start_time=start) for _ in range(2)]
-    )
-    admitted = {"decode": 0, "prefill": 0}
-    for r in reqs:
-        kind = "decode" if r.category.shape_key == (dec_seq,) else "prefill"
-        res = sched.submit_request(r)
-        admitted[kind] += int(res.admitted)
-        log(f"request {kind} period={period * 1e3:.3f} ms deadline={deadline * 1e3:.3f} ms: "
-            f"{'ADMIT' if res.admitted else 'REJECT'} (phase {res.phase}, U={res.utilization:.3f})")
-    if admitted["decode"] < 1 or admitted["prefill"] < 1:
-        raise AssertionError(f"admission: {admitted}; need >= 1 of each kind")
+    admitted = {f"{mid}/{kind}": 0 for mid, _, kind in cats}
+    for mid, shape, kind in cats:
+        for _ in range(streams[kind]):
+            res = sched.submit_request(Request(
+                Category(mid, shape), period=period, relative_deadline=deadline,
+                n_frames=frames, start_time=start))
+            admitted[f"{mid}/{kind}"] += int(res.admitted)
+            log(f"request {mid} {kind} period={period * 1e3:.3f} ms "
+                f"deadline={deadline * 1e3:.3f} ms: {'ADMIT' if res.admitted else 'REJECT'} "
+                f"(phase {res.phase}, U={res.utilization:.3f})")
+    if min(admitted.values()) < 1:
+        raise AssertionError(f"admission: {admitted}; need >= 1 stream in every category")
 
     ops.reset_launch_counts()
     t_run = time.perf_counter()
@@ -390,25 +610,41 @@ def phase_serve(torch, report):
         raise AssertionError("conservation: completed + dropped + lost != ingested")
     if engine.stats["decode_compiles"] != 0:
         raise AssertionError(f"decode_compiles = {engine.stats['decode_compiles']} after warm-up")
-    for name, n in serving_launches.items():
-        if n < 1:
+    kinds = {k for cfg in cfgs.values() for k in cfg.block_pattern}
+    needed = {"decode_attention", "flash_attention"} if kinds & {"attn", "swa"} else set()
+    needed |= {"wkv6"} if "rwkv" in kinds else set()
+    needed |= {"rglru_scan"} if "rglru" in kinds else set()
+    for name in sorted(needed):
+        if serving_launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched while serving")
-        report.setdefault(name, {})["launches"] = n
 
-    # The served step's outputs are well formed.
-    logits = engine.dispatch(MID, (dec_seq,), engine.max_slots, "decode").wait()
-    nxt = engine.dispatch(MID, (pre_seq,), 8, "prefill").wait()
-    if tuple(logits.shape) != (engine.max_slots, cfg.vocab_size) or not bool(
-            torch.isfinite(logits).all()):
-        raise AssertionError(f"decode logits malformed: {tuple(logits.shape)}")
-    if tuple(nxt.shape) != (8,) or not bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()):
-        raise AssertionError(f"prefill tokens malformed: {nxt}")
-    report["_serve"] = dict(
-        wcet_decode_ms=w_dec * 1e3, wcet_prefill_ms={b: w * 1e3 for b, w in w_pre.items()},
+    # Every model's served steps give well-formed outputs.
+    for mid, cfg in cfgs.items():
+        logits = engine.dispatch(mid, (decode_seq[mid],), engine.max_slots, "decode").wait()
+        nxt = engine.dispatch(mid, (PREFILL_SEQ,), 8, "prefill").wait()
+        if tuple(logits.shape) != (engine.max_slots, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{mid} decode logits malformed: {tuple(logits.shape)}")
+        if tuple(nxt.shape) != (8,) or not bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()):
+            raise AssertionError(f"{mid} prefill tokens malformed: {nxt}")
+        # The served prefill returns argmax tokens only; its logits on the
+        # same (zero) frame must be finite too.
+        with torch.no_grad():
+            pre, _ = engine.models[mid].forward(
+                engine.params[mid],
+                torch.zeros((1, PREFILL_SEQ), dtype=torch.long, device="cuda"))
+        if not bool(torch.isfinite(pre[:, -1]).all()):
+            raise AssertionError(f"{mid} prefill logits not finite")
+        log(f"{mid}: decode logits {tuple(logits.shape)} finite, prefill logits finite, "
+            f"prefill tokens {nxt.tolist()}")
+        del pre
+    return dict(
+        wcet=wcet, period_ms=period * 1e3, deadline_ms=deadline * 1e3,
         miss_rate=m.miss_rate, p99_latency_ms=m.latency_percentile(0.99) * 1e3,
         throughput=m.throughput, completed=m.completed_frames, ingested=ingested,
         admitted=admitted, launches_serving=serving_launches,
-        launches_profiling=profiling_launches, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches_profiling=profiling_launches,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
     )
 
 
@@ -421,6 +657,9 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -452,14 +691,25 @@ def main() -> int:
     with Phase("kernels"):
         phase_kernels(torch, report)
     with Phase("model"):
-        phase_model(torch)
+        phase_model(torch, MID, 2)
+        phase_model(torch, RWKV, 2)
+        phase_model(torch, RGEMMA, 3, sliding_window=64)
     with Phase("serve"):
-        phase_serve(torch, report)
-        log("served: " + json.dumps(report["_serve"], sort_keys=True))
+        served = phase_serve(torch, {MID: 2048}, {"decode": 4, "prefill": 2}, frames=20,
+                             deadline_factor=12.0)
+        log("served: " + json.dumps(served, sort_keys=True))
+    with Phase("serve_multitenant"):
+        served = phase_serve(torch, DECODE_SEQ, {"decode": 2, "prefill": 1}, frames=8,
+                             deadline_factor=6.0)
+        log("served multitenant: " + json.dumps(served, sort_keys=True))
+        for name, n in served["launches_serving"].items():
+            report[name]["launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows = [{k: report[n][k] for k in keys} for n in ("decode_attention", "flash_attention")]
+    names = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
+    rows = [{k: report[n][k] for k in keys} for n in names]
+    log(f"total run time {time.perf_counter() - T_START:.3f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

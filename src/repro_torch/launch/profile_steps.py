@@ -1,8 +1,10 @@
 """Where a served step's time goes, on the card.
 
-Builds the engine over granite-3-2b at full width (random weights from a
-seed, as ``chip_smoke.py`` does), warms up the decode step and the
-prefill buckets, then for each step reports:
+Builds one engine over the ported models at full width, granite-3-2b,
+rwkv6-1.6b and recurrentgemma-9b (random weights from a seed, as
+``chip_smoke.py`` does), warms up each model's decode step (seq 2048;
+4096 for recurrentgemma, whose 2048-slot ring is then narrower than the
+sequence) and its prefill buckets, then for each step reports:
 
 - wall ms per step (host clock around dispatch + wait, median of RUNS
   unprofiled steps);
@@ -26,23 +28,24 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.serving.engine import InferenceEngine
 
-MID = "granite-3-2b"
+DECODE_SEQ = {"granite-3-2b": 2048, "rwkv6-1.6b": 2048, "recurrentgemma-9b": 4096}
+PREFILL_SEQ = 512
 RUNS = 10
 TOP = 12
 
 
-def _step(engine, kind, seq, batch):
-    return engine.dispatch(MID, (seq,), batch, kind)
+def _step(engine, mid, kind, seq, batch):
+    return engine.dispatch(mid, (seq,), batch, kind)
 
 
-def profile(engine, kind, seq, batch):
+def profile(engine, mid, kind, seq, batch):
     for _ in range(3):
-        _step(engine, kind, seq, batch).wait()
+        _step(engine, mid, kind, seq, batch).wait()
     walls, enqueues = [], []
     for _ in range(RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        h = _step(engine, kind, seq, batch)
+        h = _step(engine, mid, kind, seq, batch)
         t1 = time.perf_counter()
         h.wait()
         t2 = time.perf_counter()
@@ -53,13 +56,13 @@ def profile(engine, kind, seq, batch):
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
-            _step(engine, kind, seq, batch).wait()
+            _step(engine, mid, kind, seq, batch).wait()
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     wall = statistics.median(walls)
     kernels = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:TOP]
     return {
-        "kind": kind, "seq": seq, "batch": batch,
+        "model": mid, "kind": kind, "seq": seq, "batch": batch,
         "wall_ms_median": wall, "wall_ms_max": max(walls),
         "enqueue_ms_median": statistics.median(enqueues),
         "device_busy_ms_per_step": busy_ms,
@@ -76,12 +79,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps measures the card: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(MID)
-    engine = InferenceEngine({MID: cfg}, seed=0, max_slots=8, device="cuda")
+    cfgs = {mid: get_config(mid) for mid in DECODE_SEQ}
+    engine = InferenceEngine(cfgs, seed=0, max_slots=8, device="cuda")
     print(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
-          f"{cfg.n_layers} layers {cfg.param_dtype}")
-    for kind, seq, batch in (("decode", 2048, 8), ("prefill", 512, 1), ("prefill", 512, 8)):
-        print(json.dumps(profile(engine, kind, seq, batch)))
+          + "; ".join(f"{m} {c.n_layers} layers {c.param_dtype}" for m, c in cfgs.items()))
+    for mid, dec_seq in DECODE_SEQ.items():
+        steps = (("decode", dec_seq, 8), ("prefill", PREFILL_SEQ, 1), ("prefill", PREFILL_SEQ, 8))
+        for kind, seq, batch in steps:
+            print(json.dumps(profile(engine, mid, kind, seq, batch)), flush=True)
 
 
 if __name__ == "__main__":

@@ -16,12 +16,12 @@ from repro_torch.configs.registry import tiny
 from repro_torch.core import TraceSpec, generate_trace
 from repro_torch.serving.batcher_bridge import build_live_scheduler
 
-PORTED_ARCHS = ("granite-3-2b",)
+PORTED_ARCHS = ("granite-3-2b", "rwkv6-1.6b", "recurrentgemma-9b")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--archs", default="granite-3-2b")
+    ap.add_argument("--archs", default="granite-3-2b,rwkv6-1.6b")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--mean-period", type=float, default=0.25)

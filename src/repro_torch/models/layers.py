@@ -51,6 +51,23 @@ def tree_leaves(tree: Any) -> list:
     return out
 
 
+def fan_in(p: Param) -> int:
+    """The input width of one layer's leaf, for its fan-in scaled init.
+
+    A stacked leaf's leading ``layer`` axis is not an input axis. ``x @ W``
+    contracts W's first axis, except an output projection
+    (heads, head_dim, embed), which contracts all but its last. (The
+    reference reads dim 1 of every 3-D leaf and dim 0 otherwise, so a
+    stacked (n_super, d, heads, head_dim) leaf gets std 1/sqrt(n_super).)
+    """
+    shape, axes = p.shape, p.axes
+    if axes and axes[0] == "layer":
+        shape, axes = shape[1:], axes[1:]
+    if len(shape) >= 3 and axes[-1] == "embed":
+        return math.prod(shape[:-1])
+    return max(shape[0], 1)
+
+
 def _init_leaf(p: Param, dtype, device, generator: torch.Generator) -> torch.Tensor:
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=dtype, device=device)
@@ -59,11 +76,7 @@ def _init_leaf(p: Param, dtype, device, generator: torch.Generator) -> torch.Ten
     if p.init == "embed":
         std = p.scale if p.scale is not None else 1.0
     else:
-        # Fan-in scaled normal, with the reference's fan-in rule.
-        fan_in = p.shape[0] if len(p.shape) > 1 else max(p.shape[0], 1)
-        if len(p.shape) == 3:  # stacked experts / stacked layers: dim 1
-            fan_in = p.shape[1]
-        std = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
+        std = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in(p))
     x = torch.randn(p.shape, generator=generator, dtype=dtype, device=device)
     return x.mul_(std)
 

@@ -12,9 +12,11 @@ Modes: ``forward`` (full-sequence logits), ``prefill`` (forward + cache
 population, last-token logits), ``decode_step`` (one token against the
 cache, in place).
 
-This slice ports ``attn`` blocks with a dense FFN (granite-3-2b and its
-kin). ``swa``, ``rglru``, ``rwkv``, MoE and encoder-decoder raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Block kinds: ``attn`` (global attention), ``swa`` (sliding-window
+attention over a ring cache), ``rglru`` (Griffin recurrent block) and
+``rwkv`` (RWKV-6 time-mix with its channel-mix as the FFN), with a dense
+FFN. MoE FFNs and encoder-decoder models raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -43,20 +45,22 @@ from repro_torch.models.layers import (
     norm_spec,
     unembed,
 )
+from repro_torch.models.recurrent import (
+    griffin_block,
+    griffin_block_spec,
+    griffin_init_state,
+    rwkv6_channelmix,
+    rwkv6_channelmix_spec,
+    rwkv6_init_state,
+    rwkv6_timemix,
+    rwkv6_timemix_spec,
+)
 
-_NOT_PORTED = {
-    "swa": "swa ring caches (gemma3)",
-    "rglru": "models/recurrent.py with the rglru kernel (recurrentgemma)",
-    "rwkv": "models/recurrent.py with the wkv6 kernel (rwkv6)",
-}
+KINDS = ("attn", "swa", "rglru", "rwkv")
 
 
 def _require_ported(cfg: ModelConfig, kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md: {_NOT_PORTED[kind]})"
-        )
-    if kind != "attn":
+    if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind}")
     if cfg.is_moe:
         raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP.md: MoE)")
@@ -74,14 +78,21 @@ def _require_ported(cfg: ModelConfig, kind: str) -> None:
 def block_spec(cfg: ModelConfig, kind: str) -> Dict:
     _require_ported(cfg, kind)
     d = cfg.d_model
-    return {
-        "norm1": norm_spec(d, cfg.norm),
-        "mixer": attention_spec(
+    spec: Dict[str, Any] = {"norm1": norm_spec(d, cfg.norm)}
+    if kind in ("attn", "swa"):
+        spec["mixer"] = attention_spec(
             d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.attn_bias
-        ),
-        "norm2": norm_spec(d, cfg.norm),
-        "ffn": mlp_spec(d, cfg.d_ff, cfg.activation),
-    }
+        )
+    elif kind == "rglru":
+        spec["mixer"] = griffin_block_spec(d, cfg.d_rnn or d)
+    else:  # rwkv
+        spec["mixer"] = rwkv6_timemix_spec(d, cfg.n_heads)
+    spec["norm2"] = norm_spec(d, cfg.norm)
+    if kind == "rwkv":
+        spec["ffn"] = rwkv6_channelmix_spec(d, cfg.d_ff)
+    else:
+        spec["ffn"] = mlp_spec(d, cfg.d_ff, cfg.activation)
+    return spec
 
 
 def _stack_spec(spec: Any, n: int) -> Any:
@@ -120,20 +131,29 @@ def _apply_block_full(
     collect: bool,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (x_out, cache_contrib or None)."""
-    _require_ported(cfg, kind)
     h = apply_norm(x, p["norm1"], cfg.norm)
-    y = mha(
-        p["mixer"], h, positions, causal=True, window=None,
-        rope_theta=cfg.rope_theta, rope_kind=cfg.rope_kind, impl=cfg.impl,
-    )
     contrib = None
-    if collect:
-        k, v = project_kv(p["mixer"], h, positions, cfg.rope_theta, cfg.rope_kind)
-        contrib = {"k": k, "v": v}
+    if kind in ("attn", "swa"):
+        window = cfg.sliding_window if kind == "swa" else None
+        y = mha(
+            p["mixer"], h, positions, causal=True, window=window,
+            rope_theta=cfg.rope_theta, rope_kind=cfg.rope_kind, impl=cfg.impl,
+        )
+        if collect:
+            k, v = project_kv(p["mixer"], h, positions, cfg.rope_theta, cfg.rope_kind)
+            contrib = {"k": k, "v": v}
+    elif kind == "rglru":
+        y, contrib = griffin_block(p["mixer"], h, impl=cfg.impl)
+    else:  # rwkv
+        y, contrib = rwkv6_timemix(p["mixer"], h, cfg.n_heads, impl=cfg.impl)
     x = x + y
     h2 = apply_norm(x, p["norm2"], cfg.norm)
-    x = x + apply_mlp(h2, p["ffn"], cfg.activation)
-    return x, contrib
+    if kind == "rwkv":
+        f, chan_state = rwkv6_channelmix(p["ffn"], h2)
+        contrib = dict(contrib, channel=chan_state)
+    else:
+        f = apply_mlp(h2, p["ffn"], cfg.activation)
+    return x + f, contrib if collect else None
 
 
 def _apply_block_decode(
@@ -144,23 +164,62 @@ def _apply_block_decode(
     cursor: torch.Tensor,  # (B,) int32 absolute position of this token
     cache: Dict,
     active: Optional[torch.Tensor],  # (B,) live-slot bitmap (arena)
-    views: Tuple[torch.Tensor, torch.Tensor],  # (kv_pos, kv_valid), shared by layers
+    attn_views: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (kv_pos, kv_valid)
 ) -> torch.Tensor:
-    """One token through one block; writes this token's K/V into
-    ``cache`` in place."""
-    _require_ported(cfg, kind)
+    """One token through one block; updates ``cache`` in place: this
+    token's K/V for attention kinds, every state leaf for the recurrent
+    ones. As in the reference, recurrent states advance on every row
+    whatever ``active`` says (only attention reads the bitmap)."""
     h = apply_norm(x, p["norm1"], cfg.norm)
-    k, v = project_kv(p["mixer"], h, cursor[:, None], cfg.rope_theta, cfg.rope_kind)
-    kvcache.attn_cache_write(cache, k, v, cursor)
-    kv_pos, valid = views
-    y = mha_decode(
-        p["mixer"], h, cursor, cache["k"], cache["v"], kv_pos, valid,
-        window=None, rope_theta=cfg.rope_theta, rope_kind=cfg.rope_kind,
-        impl=cfg.impl, active=active,
-    )
+    if kind in ("attn", "swa"):
+        k, v = project_kv(p["mixer"], h, cursor[:, None], cfg.rope_theta, cfg.rope_kind)
+        if kind == "attn":
+            kvcache.attn_cache_write(cache, k, v, cursor)
+            kv_pos, valid = attn_views
+            window = None
+        else:
+            kvcache.ring_cache_write(cache, k, v, cursor)
+            _, _, kv_pos, valid = kvcache.ring_cache_views(cache, cursor)
+            window = cfg.sliding_window
+        y = mha_decode(
+            p["mixer"], h, cursor, cache["k"], cache["v"], kv_pos, valid,
+            window=window, rope_theta=cfg.rope_theta, rope_kind=cfg.rope_kind,
+            impl=cfg.impl, active=active,
+        )
+    elif kind == "rglru":
+        y, state = griffin_block(
+            p["mixer"], h, state={"h": cache["h"], "conv": cache["conv"]}, impl=cfg.impl
+        )
+        cache["h"].copy_(state["h"])
+        cache["conv"].copy_(state["conv"])
+    else:  # rwkv
+        y, state = rwkv6_timemix(
+            p["mixer"], h, cfg.n_heads,
+            state={"shift": cache["shift"], "wkv": cache["wkv"]},
+            impl=cfg.impl, wkv_out=cache["wkv"],
+        )
+        cache["shift"].copy_(state["shift"])
     x = x + y
     h2 = apply_norm(x, p["norm2"], cfg.norm)
-    return x + apply_mlp(h2, p["ffn"], cfg.activation)
+    if kind == "rwkv":
+        f, chan = rwkv6_channelmix(p["ffn"], h2, state=cache["channel"])
+        cache["channel"].copy_(chan)
+    else:
+        f = apply_mlp(h2, p["ffn"], cfg.activation)
+    return x + f
+
+
+def _fill_from_prefill(kind: str, cache: Dict, contrib: Dict, positions) -> None:
+    """Write one layer's prefill contribution into its cache, in place."""
+    if kind == "attn":
+        s = contrib["k"].shape[1]
+        cache["k"][:, :s] = contrib["k"].to(cache["k"].dtype)
+        cache["v"][:, :s] = contrib["v"].to(cache["v"].dtype)
+    elif kind == "swa":
+        kvcache.ring_cache_fill_from_prefill(cache, contrib["k"], contrib["v"], positions)
+    else:
+        for name, val in contrib.items():
+            cache[name].copy_(val)
 
 
 # ---------------------------------------------------------------------------
@@ -168,24 +227,36 @@ def _apply_block_decode(
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+def _layer_cache(
+    cfg: ModelConfig, kind: str, batch: int, max_len: int, device, lead: Tuple[int, ...] = ()
+) -> Dict[str, torch.Tensor]:
+    """One layer's cache (``lead`` = (n_super,) for a stacked entry)."""
+    _require_ported(cfg, kind)
     hd = cfg.resolved_head_dim
+    if kind == "attn":
+        return kvcache.attn_cache_init(
+            batch, max_len, cfg.n_kv_heads, hd, cfg.dtype, device, lead
+        )
+    if kind == "swa":
+        return kvcache.ring_cache_init(
+            batch, min(cfg.sliding_window, max_len), cfg.n_kv_heads, hd, cfg.dtype,
+            device, lead,
+        )
+    if kind == "rglru":
+        return griffin_init_state(batch, cfg.d_rnn or cfg.d_model, device, lead)
+    return rwkv6_init_state(batch, cfg.d_model, cfg.n_heads, device, lead)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     cache: Dict[str, Any] = {}
     if cfg.n_super > 0:
-        cache["super"] = []
-        for kind in cfg.block_pattern:
-            _require_ported(cfg, kind)
-            shape = (cfg.n_super, batch, max_len, cfg.n_kv_heads, hd)
-            cache["super"].append({
-                "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            })
-    cache["tail"] = []
-    for kind in cfg.tail_kinds:
-        _require_ported(cfg, kind)
-        cache["tail"].append(
-            kvcache.attn_cache_init(batch, max_len, cfg.n_kv_heads, hd, cfg.dtype, device)
-        )
+        cache["super"] = [
+            _layer_cache(cfg, kind, batch, max_len, device, lead=(cfg.n_super,))
+            for kind in cfg.block_pattern
+        ]
+    cache["tail"] = [
+        _layer_cache(cfg, kind, batch, max_len, device) for kind in cfg.tail_kinds
+    ]
     return cache
 
 
@@ -229,11 +300,12 @@ class Transformer:
 
     @staticmethod
     def _cache_view(cache, where) -> Dict[str, torch.Tensor]:
-        """One layer's K/V: views into the stacked cache, written in place."""
+        """One layer's cache leaves: contiguous views into the stacked
+        cache, written in place."""
         part, j, i = where
         if part == "tail":
             return cache["tail"][j]
-        return {"k": cache["super"][j]["k"][i], "v": cache["super"][j]["v"][i]}
+        return {name: t[i] for name, t in cache["super"][j].items()}
 
     def _embed(self, params, tokens):
         x = embed_lookup(params["embed"], tokens)
@@ -252,7 +324,7 @@ class Transformer:
         self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) integer; positions: (B, S). Returns (logits f32,
-        aux) — aux is 0 (no MoE in this slice)."""
+        aux) — aux is 0 (MoE is not ported)."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -280,13 +352,13 @@ class Transformer:
         ``active`` marks live slot-arena rows: dead rows are masked out of
         attention (the kernel skips all their KV tiles) and their logits
         are unspecified — the engine never reads them. ``None`` means
-        every row is live.
+        every row is live. Recurrent states advance on every row.
         """
         x = self._embed(params, token[:, None])
-        views = None
+        views = None  # full-cache positions and validity, shared by attn layers
         for kind, p, where in self._layers(params):
             layer_cache = self._cache_view(cache, where)
-            if views is None:
+            if kind == "attn" and views is None:
                 _, _, kv_pos, valid = kvcache.attn_cache_views(layer_cache, cursor)
                 views = (kv_pos, valid)
             x = _apply_block_decode(
@@ -305,8 +377,6 @@ class Transformer:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         x = self._embed(params, tokens)
         for kind, p, where in self._layers(params):
-            layer_cache = self._cache_view(cache, where)
             x, contrib = _apply_block_full(self.cfg, kind, p, x, positions, True)
-            layer_cache["k"][:, :s] = contrib["k"].to(layer_cache["k"].dtype)
-            layer_cache["v"][:, :s] = contrib["v"].to(layer_cache["v"].dtype)
+            _fill_from_prefill(kind, self._cache_view(cache, where), contrib, positions)
         return self._logits(params, x[:, -1:])[:, 0], cache

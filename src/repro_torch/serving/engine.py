@@ -53,7 +53,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bucketing import bucket
 from repro_torch.ingest.staging import StagingRing, check_payload_dtype
 from repro_torch.models import model_for
-from repro_torch.models.kvcache import cache_nbytes, cache_reset_rows
+from repro_torch.models.kvcache import (
+    cache_nbytes,
+    cache_reset_rows,
+    ring_cache_present_window,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -92,7 +96,8 @@ class SlotArena:
     """One model's resident decode state for one seq length.
 
     ``cache`` is the single KV buffer (batch axis = max_slots) that lives
-    across steps and is written in place. ``cur``/``active`` are
+    across steps and is written in place. ``presented``: its ring caches
+    hold a full window of positions for prefix-mode decode. ``cur``/``active`` are
     DEVICE-resident per-row cursors and the live-slot bitmap, updated in
     place: steady-state slot-mode decode does no host->device transfer
     besides the staged tokens. ``free`` are the unassigned row ids;
@@ -106,6 +111,9 @@ class SlotArena:
     free: List[int] = field(default_factory=list)
     allocs: int = 0
     resets: int = 0
+    # Ring positions presented for prefix-mode decode (cleared when the
+    # allocator wipes rows).
+    presented: bool = False
 
     @property
     def live(self) -> Tuple[int, ...]:
@@ -276,6 +284,7 @@ class InferenceEngine:
         arena.free = [s for s in arena.free if s not in slots]
         rows = self._row_mask(slots)
         cache_reset_rows(arena.cache, rows)
+        arena.presented = False
         arena.cur.masked_fill_(rows, start_pos)
         arena.active.logical_or_(rows)
         arena.allocs += n
@@ -403,15 +412,15 @@ class InferenceEngine:
         self, mid: str, seq: int, k: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(cursors, active) for a job occupying the first ``k`` arena
-        rows: live rows sit at position seq-1, dead rows carry active=0.
+        rows: every row sits at position seq-1 (so a dead row's cache
+        write keeps a presented ring full), dead rows carry active=0.
         Cached per (mid, seq, k) as device tensors."""
         if not self.masked_decode:
             k = self.max_slots  # blind padding: every row does full work
         key = (mid, seq, k)
         if key not in self._decode_inputs:
             m = self.max_slots
-            cur = torch.zeros((m,), dtype=torch.int32)
-            cur[:k] = seq - 1
+            cur = torch.full((m,), seq - 1, dtype=torch.int32)
             active = torch.arange(m) < k
             self._decode_inputs[key] = (cur.to(self.device), active.to(self.device))
         return self._decode_inputs[key]
@@ -475,6 +484,13 @@ class InferenceEngine:
                     f"slots= (all live rows) instead"
                 )
             cur, active = self._prefix_inputs(mid, seq, batch_size)
+            if not arena.presented:
+                # Synthetic cursors at seq-1: fill every ring as a served
+                # row's is there, so the step (and the WCET profiled from
+                # it) does a full window's attention, as a full cache's
+                # validity by cursor already makes it do.
+                ring_cache_present_window(arena.cache, seq - 1)
+                arena.presented = True
         else:
             ids = [int(s) for s in slots]
             if len(ids) != batch_size or len(set(ids)) != len(ids):

@@ -114,9 +114,34 @@ def test_init_from_generator_is_seeded_and_matches_spec():
     assert torch.count_nonzero(p1["final_norm"]["scale"]) == 0
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-1.6b", "recurrentgemma-9b"])
+def test_init_draws_each_matrix_at_its_input_width(arch):
+    """Fan-in scaled leaves are drawn at std 1/sqrt(input width): for a
+    stacked leaf the width of one layer, never its layer axis; for an
+    output projection (heads, head_dim, embed) heads x head_dim."""
+    cfg = tiny(arch, n_layers=3, d_model=256, d_ff=512, n_heads=4, n_kv_heads=1,
+               head_dim=64, d_rnn=256, vocab_size=64)
+    spec = model_spec(cfg)
+    params = model_for(cfg).init(torch.Generator().manual_seed(9), device="cpu")
+    if arch == "granite-3-2b":
+        attn = spec["super"][0]["mixer"]
+        assert attn["wq"].shape[0] == cfg.n_super and tl.fan_in(attn["wq"]) == cfg.d_model
+        assert tl.fan_in(attn["wo"]) == cfg.n_heads * 64
+    checked = 0
+    for p, x in zip(tl.tree_leaves(spec), tl.tree_leaves(params)):
+        if p.init != "normal" or p.scale is not None or x.numel() < 4096:
+            continue
+        width = tl.fan_in(p)
+        assert width in (cfg.d_model, cfg.d_ff, cfg.d_rnn, cfg.n_heads * 64), (p, width)
+        assert abs(float(x.std()) * width ** 0.5 - 1.0) < 0.1, (p, float(x.std()))
+        checked += 1
+    assert checked >= 4
+
+
 @pytest.mark.parametrize("fn", [
     "interop.params_from_numpy", "layers.build_params", "layers.rope_frequencies",
-    "kvcache.attn_cache_init", "transformer.init_cache", "transformer.Transformer.init",
+    "kvcache.attn_cache_init", "kvcache.ring_cache_init", "recurrent.griffin_init_state",
+    "recurrent.rwkv6_init_state", "transformer.init_cache", "transformer.Transformer.init",
     "transformer.Transformer.init_cache", "staging.StagingRing.__init__",
 ])
 def test_entry_points_default_to_the_card(fn):
@@ -124,9 +149,9 @@ def test_entry_points_default_to_the_card(fn):
     import inspect
 
     from repro_torch.ingest import staging
-    from repro_torch.models import transformer
+    from repro_torch.models import recurrent, transformer
 
-    mods = {"interop": interop, "layers": tl, "kvcache": tkv,
+    mods = {"interop": interop, "layers": tl, "kvcache": tkv, "recurrent": recurrent,
             "transformer": transformer, "staging": staging}
     head, *rest = fn.split(".")
     obj = mods[head]
@@ -136,8 +161,9 @@ def test_entry_points_default_to_the_card(fn):
 
 
 def test_unported_kinds_raise_naming_the_roadmap():
-    for arch in ("rwkv6-1.6b", "recurrentgemma-9b", "gemma3-12b", "mixtral-8x7b",
-                 "whisper-large-v3"):
+    # swa, rglru and rwkv blocks are ported (tests/test_torch_recurrent.py);
+    # MoE FFNs and encoder-decoder models are not.
+    for arch in ("mixtral-8x7b", "llama4-maverick-400b-a17b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model_for(tiny(arch))
 
