@@ -8,14 +8,23 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 1. device  — requires CUDA, prints the card's name and power limit,
              turns TF32 off for matmuls and cuDNN.
 2. build   — builds the four CUDA kernels from src/repro_torch/kernels/csrc
-             with nvcc for sm_90a (one nvcc per source, in parallel) and
-             prints ptxas' register and spill lines.
+             with nvcc for sm_90a (one nvcc per source, in parallel),
+             prints ptxas' register and spill lines and, from
+             `cuobjdump -sass`, each library's count of tensor-core
+             (HGMMA, HMMA) and async-copy (UTMALDG, LDGSTS) instructions;
+             fails unless flash_attention has HGMMA and decode_attention
+             HMMA.
 3. kernels — holds each kernel against its plain PyTorch version at the
              main path's shapes, in bf16 (2e-2) and float32 (2e-5): the
              two attention kernels at granite-3-2b's and recurrentgemma-
-             9b's shapes, wkv6 at rwkv6-1.6b's, rglru_scan at
-             recurrentgemma-9b's; times kernel, plain version and, for
-             attention, SDPA (the yardstick).
+             9b's shapes (decode also for bit-identical repeats), wkv6 at
+             rwkv6-1.6b's, rglru_scan at recurrentgemma-9b's; times
+             kernel, plain version and, for attention, SDPA (the
+             yardstick) and the previous bf16 design in turns with the
+             kernel (new, old, old, new). Kernel, previous and SDPA times
+             are device times (a CUDA graph of 20 calls, replayed); the
+             plain versions are timed eagerly, and so is each attention
+             kernel's wrapper once more, for its host-inclusive time.
 4. model   — granite-3-2b, rwkv6-1.6b and recurrentgemma-9b at full width,
              2-3 layers, float32: prefill and decode logits on the kernel
              path (default impl) against impl="dense", and decode against
@@ -33,7 +42,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              launch counts are this run's).
 
 Before the last line it prints the nvidia-smi line and one JSON object
-with a row per kernel; the last line is the device record.
+with a row per kernel (the attention rows with `previous_ms`, the
+previous bf16 design's time; null for the recurrences); the last line is
+the device record.
 """
 from __future__ import annotations
 
@@ -100,6 +111,37 @@ def time_ms(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, inputs, iters: int = 20, reps: int = 5) -> float:
+    """Mean device ms per call of ``fn(*inp)``, cycling through ``inputs``
+    as ``time_ms`` does, with the host's cost per call taken out: the
+    ``iters`` calls are captured once into a CUDA graph, which is replayed
+    ``reps`` times between two events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(*inputs[i % len(inputs)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    return ms
+
+
 def n_copies(nbytes: int) -> int:
     return max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
 
@@ -116,6 +158,39 @@ def assert_close(name: str, got, want, tol: float) -> float:
             f"{name}: max abs err {err.max().item():.3e} beyond tol {tol}"
         )
     return float(err.max().item())
+
+
+def in_turns(new, old, inputs):
+    """(new ms, old ms): device times of the two in turns on the same
+    inputs (new, old, old, new), each the mean of its two runs."""
+    a = device_ms(new, inputs)
+    b = device_ms(old, inputs)
+    c = device_ms(old, inputs)
+    d = device_ms(new, inputs)
+    return (a + d) / 2, (b + c) / 2
+
+
+def bound(nbytes: int, flops: int, dtype: str = "bfloat16"):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the peak rate for the type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
+
+
+def sass_counts(path) -> dict:
+    """Tensor-core and async-copy instructions in a built library."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    found = re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", text)
+    return {op: found.count(op) for op in SASS_OPS}
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +291,12 @@ def phase_kernels(torch, report):
     run_p = lambda *a: dk.decode_attention_plain(*a)
     got = run_k(*base)
     err = assert_close("decode timed case", got, run_p(*base), TOL["bfloat16"])
-    ms = time_ms(run_k, inputs)
+    if not torch.equal(got, run_k(*base)):
+        raise AssertionError("decode: two calls on the same inputs differ")
+    assert_close("decode previous design", dk.previous_design(*base), run_p(*base),
+                 TOL["bfloat16"])
+    ms, previous_ms = in_turns(run_k, lambda *a: dk.previous_design(*a), inputs)
+    eager_ms = time_ms(run_k, inputs)
     plain_ms = time_ms(run_p, inputs, iters=5, warmup=1)
     # SDPA yardstick on the same inputs, laid out (B, H, S, D) beforehand.
     lib_inputs = []
@@ -226,26 +306,26 @@ def phase_kernels(torch, report):
                            v_.transpose(1, 2).contiguous(), mask))
     lib = lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
         q_, k_, v_, attn_mask=m_, enable_gqa=True)
-    library_ms = time_ms(lib, lib_inputs)
+    library_ms = device_ms(lib, lib_inputs)
     n_live = live_slots(cur, pos, valid, act, None)
     esz = ck.element_size()
     nbytes = (q.numel() * esz * 2  # q read, out written
               + 2 * n_live * kv * d * esz  # K and V of the live slots
               + b * 4 + b * s * 4 + b * s)  # cursor, positions, validity
     flops = 4 * n_live * kv * g * d
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bound_ms, bound_by = bound(nbytes, flops)
     report.setdefault("decode_attention", {}).update(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:145",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms, previous_ms=previous_ms,
         shape=f"B={b} S={s} H={h} KV={kv} D={d} bf16, all rows live, cursor S-1",
     )
-    log(f"decode timed B={b} S={s} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+    log(f"decode timed B={b} S={s} bf16 (split plan {dk.plan_splits(b, kv, s, dk._sm_count(q.device))}): "
+        f"kernel {ms:.4f} ms, previous design {previous_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}; eager calls "
+        f"{eager_ms:.4f} ms each "
         f"({nbytes} bytes, {flops} flops)")
 
     # ----- flash attention --------------------------------------------
@@ -275,30 +355,32 @@ def phase_kernels(torch, report):
                             for _ in range(n_copies(per_copy) - 1)]
     run_k = lambda q_, k_, v_: fk.flash_attention(q_, k_, v_, causal=True)
     run_p = lambda q_, k_, v_: fk.flash_attention_plain(q_, k_, v_, causal=True)
+    run_o = lambda q_, k_, v_: fk.previous_design(q_, k_, v_, causal=True)
     err = assert_close("flash timed case", run_k(q, k, v), run_p(q, k, v), TOL["bfloat16"])
-    ms = time_ms(run_k, inputs)
+    assert_close("flash previous design", run_o(q, k, v), run_p(q, k, v), TOL["bfloat16"])
+    ms, previous_ms = in_turns(run_k, run_o, inputs)
+    eager_ms = time_ms(run_k, inputs)
     plain_ms = time_ms(run_p, inputs, iters=5, warmup=1)
     lib_inputs = [tuple(t.transpose(1, 2).contiguous() for t in inp) for inp in inputs]
     lib = lambda q_, k_, v_: F.scaled_dot_product_attention(
         q_, k_, v_, is_causal=True, enable_gqa=True)
-    library_ms = time_ms(lib, lib_inputs)
+    library_ms = device_ms(lib, lib_inputs)
     esz = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * esz  # q, k, v read; out written
     pairs = s * (s + 1) // 2  # causal (query, key) pairs per (b, h)
     flops = 4 * b * h * d * pairs
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bound_ms, bound_by = bound(nbytes, flops)
     report.setdefault("flash_attention", {}).update(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:148",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms, previous_ms=previous_ms,
         shape=f"B={b} S={s} H={h} KV={kv} D={d} bf16 causal",
     )
-    log(f"flash timed B={b} S={s} bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+    log(f"flash timed B={b} S={s} bf16 causal: kernel {ms:.4f} ms, previous design "
+        f"{previous_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}; eager calls {eager_ms:.4f} ms each "
         f"({nbytes} bytes, {flops} flops)")
     attention_at_recurrentgemma_shapes(torch, gen, F)
     recurrence_kernels(torch, report)
@@ -338,7 +420,8 @@ def attention_at_recurrentgemma_shapes(torch, gen, F):
             raise AssertionError("decode rg ring: a dead row is not exact 0")
         log(f"decode {dtype_name} B={b} S={s} H={h} KV={kv} D={d} [ring, -1 sentinels, "
             f"window {window}, a dead row]: max_abs_err={err:.3e}")
-    # Times at these shapes (bf16), for the record beside granite's.
+    # Times at these shapes (bf16), for the record beside granite's, each
+    # in turns with the previous design, with SDPA and the bound.
     dtype = torch.bfloat16
     b = 8
     q = torch.randn((b, PREFILL_SEQ, h, d), generator=gen, device="cuda").to(dtype)
@@ -347,20 +430,41 @@ def attention_at_recurrentgemma_shapes(torch, gen, F):
     per_copy = (q.numel() + 2 * k.numel()) * q.element_size()
     inputs = [(q, k, v)] + [(q.clone(), k.clone(), v.clone())
                             for _ in range(n_copies(per_copy) - 1)]
-    ms = time_ms(lambda q_, k_, v_: fk.flash_attention(q_, k_, v_, window=window), inputs)
+    ms, previous_ms = in_turns(
+        lambda q_, k_, v_: fk.flash_attention(q_, k_, v_, window=window),
+        lambda q_, k_, v_: fk.previous_design(q_, k_, v_, window=window), inputs)
     lib_inputs = [tuple(t.transpose(1, 2).contiguous() for t in inp) for inp in inputs]
-    lib_ms = time_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
+    lib_ms = device_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
         q_, k_, v_, is_causal=True, enable_gqa=True), lib_inputs)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4 * b * h * d * (PREFILL_SEQ * (PREFILL_SEQ + 1) // 2)  # the window spans S
+    bound_ms, bound_by = bound(nbytes, flops)
     log(f"flash timed B={b} S={PREFILL_SEQ} H={h} KV={kv} D={d} bf16 causal window={window}: "
-        f"kernel {ms:.4f} ms, sdpa {lib_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, previous design {previous_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {flops} flops)")
     base = decode_inputs(torch, b, 2048, h, kv, d, dtype, gen, cursors=[4095] * b, ring=True)
     qd, ck, cv, cur, pos, valid, act = base
     per_copy = 2 * ck.numel() * ck.element_size()
     inputs = [base] + [(qd, ck.clone(), cv.clone(), cur, pos, valid, act)
                        for _ in range(n_copies(per_copy) - 1)]
-    ms = time_ms(lambda *a: dk.decode_attention(*a, window=window), inputs)
-    log(f"decode timed B={b} S=2048 H={h} KV={kv} D={d} bf16 ring window={window}: "
-        f"kernel {ms:.4f} ms ({live_slots(cur, pos, valid, act, window)} live slots)")
+    ms, previous_ms = in_turns(lambda *a: dk.decode_attention(*a, window=window),
+                               lambda *a: dk.previous_design(*a, window=window), inputs)
+    lib_inputs = []
+    for (q_, k_, v_, c_, p_, va_, _a) in inputs:
+        mask = ((p_ <= c_[:, None]) & va_ & (p_ > c_[:, None] - window))[:, None, None, :]
+        lib_inputs.append((q_.transpose(1, 2).contiguous(), k_.transpose(1, 2).contiguous(),
+                           v_.transpose(1, 2).contiguous(), mask))
+    lib_ms = device_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=m_, enable_gqa=True), lib_inputs)
+    n_live = live_slots(cur, pos, valid, act, window)
+    esz = ck.element_size()
+    nbytes = (qd.numel() * esz * 2 + 2 * n_live * kv * d * esz + b * 4 + b * 2048 * 5)
+    flops = 4 * n_live * kv * (h // kv) * d
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"decode timed B={b} S=2048 H={h} KV={kv} D={d} bf16 ring window={window} (split plan "
+        f"{dk.plan_splits(b, kv, 2048, dk._sm_count(qd.device))}): kernel {ms:.4f} ms, previous "
+        f"design {previous_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({n_live} live slots, {nbytes} bytes, {flops} flops)")
 
 
 def wkv6_inputs(torch, gen, b, s, h, k, dtype, w_dtype, with_state):
@@ -436,24 +540,23 @@ def recurrence_kernels(torch, report):
     inputs = [base] + [tuple(t.clone() for t in base) for _ in range(n_copies(per_copy) - 1)]
     got, _ = wk.wkv6(*base)
     err = assert_close("wkv6 timed case", got, wk.wkv6_plain(*base)[0], TOL["bfloat16"])
-    ms = time_ms(lambda *a: wk.wkv6(*a), inputs)
+    ms = device_ms(lambda *a: wk.wkv6(*a), inputs)
     plain_ms = time_ms(lambda *a: wk.wkv6_plain(*a), inputs, iters=3, warmup=1)
     r, kk, v, w, u, state = base
     nbytes = (3 * r.numel() * r.element_size() + w.numel() * 4 + u.numel() * u.element_size()
               + r.numel() * r.element_size()  # out, in r's dtype (V = K)
               + 2 * state.numel() * 4)  # state read and written
     flops = 4 * k * k * b * h * s  # state update and output product, float32
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
     report.setdefault("wkv6", {}).update(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/wkv6.py:99", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        previous_ms=None,
     )
     log(f"wkv6 timed B={b} S={s} H={h} K=V={k} bf16/f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms ({nbytes} bytes -> "
-        f"{t_bytes:.4f} ms, {flops} fp32 flops -> {t_ops:.4f} ms); no single library call")
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
+        f"{flops} fp32 flops); no single library call")
     # rglru_scan: recurrentgemma-9b's largest prefill bucket, float32 gates,
     # no h0 (the model's prefill), last h written.
     base = rglru_inputs(torch, gen, bsz, s, d, f32, False)[:2]
@@ -461,21 +564,20 @@ def recurrence_kernels(torch, report):
     inputs = [base] + [tuple(t.clone() for t in base) for _ in range(n_copies(per_copy) - 1)]
     got, _ = rk.rglru_scan(*base)
     err = assert_close("rglru timed case", got, rk.rglru_scan_plain(*base)[0], TOL["float32"])
-    ms = time_ms(lambda *a: rk.rglru_scan(*a), inputs)
+    ms = device_ms(lambda *a: rk.rglru_scan(*a), inputs)
     plain_ms = time_ms(lambda *a: rk.rglru_scan_plain(*a), inputs, iters=3, warmup=1)
     a = base[0]
     nbytes = 3 * a.numel() * 4 + bsz * d * 4  # a, b read; h written; last h
     flops = 2 * a.numel()
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
     report.setdefault("rglru_scan", {}).update(
         name="rglru_scan", route="cuda", source="src/repro_torch/kernels/csrc/rglru.cu",
         replaces="src/repro/kernels/rglru.py:94", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        previous_ms=None,
     )
     log(f"rglru_scan timed B={bsz} S={s} D={d} f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms ({nbytes} bytes); "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes); "
         f"no single library call")
 
 
@@ -688,6 +790,11 @@ def main() -> int:
             log(f"built {name}: {path.name}")
             for ln in stats:
                 log(f"  ptxas {ln}")
+            counts = sass_counts(path)
+            log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
+            need = {"flash_attention": "HGMMA", "decode_attention": "HMMA"}.get(name)
+            if need and counts[need] < 1:
+                raise AssertionError(f"{name}: no {need} in its SASS")
     with Phase("kernels"):
         phase_kernels(torch, report)
     with Phase("model"):
@@ -706,7 +813,7 @@ def main() -> int:
             report[name]["launches"] = n
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")
     names = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
     rows = [{k: report[n][k] for k in keys} for n in names]
     log(f"total run time {time.perf_counter() - T_START:.3f} s")

@@ -6,25 +6,52 @@
 // optional causal and window masks, online softmax in float32 with the
 // same NEG_INF = -1e30 and l >= 1e-30 clamp, kv head h / (H / KV).
 //
-// What bounds it on the H100: at granite-3-2b's prefill shape (S = 512,
-// H = 32, KV = 8, D = 64) the minimum traffic. With K/V shared by four
-// query heads, causal work is about 0.4 * (S + 1) flops per byte of
-// Q/K/V/out, some 205 at S = 512, below the card's ridge of ~295 flops per
-// byte (989 TFLOP/s bf16 over 3.35 TB/s); the causal FLOP count over the
-// tensor-core rate takes over from S of about 740. This first version
-// reaches neither bound: it does not use the tensor cores (plain FMA, no
-// mma/wgmma/TMA). Its design keeps the work it does well fed and skips the
-// work the mask makes unnecessary:
-//   - one block per (b, h, 64-query tile); the TPU grid's sequential kv
-//     axis becomes a loop inside the block, with (m, l, acc) in registers;
-//   - kv tiles wholly past S, wholly in the causal future or wholly outside
-//     the window are skipped (the TPU kernel's block-sparse `run` test),
-//     which halves the causal work;
-//   - each 64x64 score tile is a register-blocked product: 256 threads,
-//     4x4 scores each, Q and K held transposed in shared memory with
-//     padded rows so every shared load is a broadcast or conflict-free;
-//   - P goes through shared memory once and each thread accumulates a
-//     4 x D/16 slice of the output in registers.
+// What bounds it on the H100: bytes, barely. At granite-3-2b's prefill
+// shape (B = 8, S = 512, H = 32, KV = 8, D = 64, causal) Q, K and V read
+// once and O written once are 41.9 MB (0.0125 ms at 3.35 TB/s) against
+// 8.6 GFLOP of causal products (0.0087 ms at 989 TFLOP/s bf16); at
+// recurrentgemma-9b's (H = 16, KV = 1, D = 256) 71.3 MB (0.0213 ms)
+// against 17.2 GFLOP (0.0174 ms). Both are near the ridge, so the
+// products have to run on the tensor cores and the loads have to overlap
+// them.
+//
+// Two routes, chosen by dtype (a rule, not a fallback: a CUDA tensor of
+// either dtype launches its kernel or the call raises):
+//
+// bf16 — `flash_wgmma_kernel`, on the tensor cores with wgmma:
+//   - one block of two warpgroups (256 threads) per (b, h, 128 queries);
+//     each warpgroup owns a 64-query tile, exactly one wgmma M, and the
+//     two share every K/V tile in shared memory (half the K/V traffic per
+//     query; one's softmax overlaps the other's products). The TPU grid's
+//     sequential kv axis is a loop inside the block, in fixed order: no
+//     split of S, no atomics, so a call is deterministic. Blocks late in
+//     S, which see the most causal kv tiles, are scheduled first.
+//   - Q (loaded once), and each K and V tile, sit in shared memory as
+//     64-column blocks of 128-byte rows in the 128-byte swizzle that wgmma
+//     reads; D is zero-padded to a multiple of 64 there (D = 8 ... 256)
+//     and rows past S are zero-filled, so any D the wrapper takes and a
+//     ragged S run through the same code.
+//   - S = Q K^T: wgmma.mma_async m64n64k16, A = Q and B = K from shared
+//     memory (both K-major), fp32 accumulators in registers.
+//   - online softmax on the accumulator fragments in registers (exp2 of
+//     log2-scaled scores); P is rounded to bf16, as the Pallas kernel does
+//     (`p.astype(v.dtype)`), and becomes the register A operand of
+//     O += P V: wgmma m64n64k16 per 64 columns of D, B = V from shared
+//     memory (MN-major, transposed by the instruction).
+//   - K/V tiles go through a 2-stage ring filled by cp.async (16 bytes a
+//     thread, zero-fill for padding), so tile t+1 is in flight while tile
+//     t is multiplied. kv tiles wholly past S, wholly in the causal
+//     future or wholly outside the window are never loaded, and a
+//     warpgroup skips the block's tiles its own rows do not need.
+//
+// float32 — `flash_fma_kernel<float>`, the first port's design: a full
+// float32 product has no tensor-core instruction and TF32 would break the
+// reference's 2e-5 tolerance. One block of 256 threads per (b, h, 64-query
+// tile), each 64x64 score tile a register-blocked FMA product over Q and K
+// held transposed in shared memory, P kept in float32, same tile skips.
+// Its bf16 instance is exported only as `flash_attention_fma_fwd`, the
+// previous bf16 design, for side-by-side timing (`previous_design` in the
+// wrapper module); `flash_attention` and `ops` never call it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,7 +62,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // 16 x 16: ty picks 4 query rows, tx 4 key columns
+constexpr int kThreads = 256;  // FMA kernel: 16 x 16, ty picks 4 query rows, tx 4 key columns
 constexpr int kQP = kBlockQ + 1;
 constexpr int kKP = kBlockK + 1;
 
@@ -44,14 +71,14 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-size_t smem_bytes(int D) {
+size_t fma_smem_bytes(int D) {
   return ((size_t)D * kQP + (size_t)D * kKP + (size_t)kBlockK * D +
           (size_t)kBlockQ * kKP) * sizeof(float);
 }
 
 // NI: output columns per thread, d = tx + 16 * i for i < NI (NI >= D / 16).
 template <typename T, int NI>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
+__global__ void __launch_bounds__(kThreads) flash_fma_kernel(
     const T* __restrict__ q,  // (B, S, H, D)
     const T* __restrict__ k,  // (B, S, KV, D)
     const T* __restrict__ v,  // (B, S, KV, D)
@@ -198,44 +225,384 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <typename T, int NI>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-           int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, NI>,
+int launch_fma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+               int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
+  const size_t smem = fma_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(flash_fma_kernel<T, NI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_kernel<T, NI><<<grid, kThreads, smem, stream>>>(
+  flash_fma_kernel<T, NI><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), S, H, KV, D, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int S,
-             int H, int KV, int D, int causal, int window, float scale,
-             cudaStream_t st) {
+int dispatch_fma(const void* q, const void* k, const void* v, void* out, int B, int S,
+                 int H, int KV, int D, int causal, int window, float scale,
+                 cudaStream_t st) {
   const int need = (D + 15) / 16;
-  if (need <= 1) return launch<T, 1>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (need <= 2) return launch<T, 2>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (need <= 4) return launch<T, 4>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (need <= 8) return launch<T, 8>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  return launch<T, 16>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (need <= 1) return launch_fma<T, 1>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (need <= 2) return launch_fma<T, 2>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (need <= 4) return launch_fma<T, 4>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (need <= 8) return launch_fma<T, 8>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  return launch_fma<T, 16>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: wgmma
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+constexpr int kFlashThreads = 256;  // two warpgroups
+// One 64-row x 64-column bf16 block in the 128-byte swizzle: row r at
+// r * 128 bytes, its 16-byte chunk c at ((c ^ (r % 8)) * 16). 1024-byte
+// aligned, as the swizzle is a function of the address bits.
+constexpr int kBlockBytes = 64 * 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; zero-fills the 16 bytes when !pred
+// (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Copy rows [0, rows) of a (rows_total x D) strided bf16 matrix into a
+// 64 x DP swizzled tile at `dst`; rows >= rows and columns >= D are zero.
+template <int DP>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, size_t stride,
+                                          int rows, int D, int tid) {
+  constexpr int kRowChunks = DP / 8;
+#pragma unroll 4
+  for (int c = tid; c < 64 * kRowChunks; c += kFlashThreads) {
+    const int r = c / kRowChunks;
+    const int ch = c - r * kRowChunks;
+    const uint32_t at = dst + (ch >> 3) * kBlockBytes + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+    const bool ok = r < rows && ch * 8 < D;
+    cp_async16(at, ok ? src + (size_t)r * stride + ch * 8 : src, ok);
+  }
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
+// Addresses and byte offsets are encoded in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma (it sees them written at the issue).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, f32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 64); A and
+// B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A (64 x 16, registers: four bf16x2 per thread) B (16 x 64); B from
+// shared memory, MN-major (transposed by the instruction).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Accumulator fragment of a 64 x 64 f32 wgmma tile, thread t of the
+// warpgroup (warp w = t / 32, lane l): d[4n + 2i + j] is row 16w + l/4 + 8i,
+// column 8n + 2(l%4) + j. The same (row, pair of columns) layout is the A
+// register fragment of a 64 x 16 tile: four bf16x2 for k-step kk come from
+// columns 16kk..16kk+15, i.e. n = 2kk and 2kk+1.
+//
+// A block is two warpgroups, each with its own 64-query tile (queries
+// 128 qb .. 128 qb + 127), sharing every K/V tile in shared memory: half
+// the K/V traffic per query, and one warpgroup's softmax overlaps the
+// other's products. Each warpgroup multiplies only the kv tiles its own
+// rows need.
+template <int DP>
+__global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
+    const bf16* __restrict__ q,  // (B, S, H, D)
+    const bf16* __restrict__ k,  // (B, S, KV, D)
+    const bf16* __restrict__ v,  // (B, S, KV, D)
+    bf16* __restrict__ out,      // (B, S, H, D)
+    int S, int H, int KV, int D, int causal, int window, float scale_log2) {
+  constexpr int NB = DP / 64;                  // 64-column blocks of D
+  constexpr int kTile = NB * kBlockBytes;      // one 64 x DP tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;                    // Q0 | Q1 | K0 | K1 | V0 | V1
+  const uint32_t sK = base + 2 * kTile;
+  const uint32_t sV = base + 4 * kTile;
+
+  // Heaviest query blocks first (the causal ones late in S see the most
+  // kv tiles), heads of one kv head next to each other.
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;
+  const int kh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const size_t qrow = (size_t)H * D;
+  const size_t krow = (size_t)KV * D;
+  const bf16* kb = k + (size_t)b * S * krow + (size_t)kh * D;
+  const bf16* vb = v + (size_t)b * S * krow + (size_t)kh * D;
+
+  // kv tiles the mask leaves work in, [lo, hi], for this warpgroup's rows
+  // and for the block (the union, contiguous).
+  const int n_kv = (S + kBlockK - 1) / kBlockK;
+  auto kv_range = [&](int q_lo, int& lo, int& hi) {
+    hi = causal ? min(n_kv - 1, (q_lo + kBlockQ - 1) / kBlockK) : n_kv - 1;
+    const int first_key = q_lo - window + 1;  // smallest key a row here keeps
+    lo = (window > 0 && first_key > 0) ? first_key / kBlockK : 0;
+  };
+  const int q_lo0 = qb * 2 * kBlockQ;
+  const int q_lo = q_lo0 + wg * kBlockQ;
+  const bool rows = q_lo < S;  // the second tile may lie wholly past S
+  int my_lo, my_hi, kt_lo, kt_hi, lo1;
+  kv_range(q_lo, my_lo, my_hi);
+  kv_range(q_lo0, kt_lo, kt_hi);  // the first tile's range starts the block's,
+  if (q_lo0 + kBlockQ < S) kv_range(q_lo0 + kBlockQ, lo1, kt_hi);  // the second's ends it
+
+  load_tile<DP>(sQ, q + ((size_t)b * S + q_lo0) * qrow + (size_t)h * D, qrow, S - q_lo0, D,
+                tid);
+  if (q_lo0 + kBlockQ < S)
+    load_tile<DP>(sQ + kTile, q + ((size_t)b * S + q_lo0 + kBlockQ) * qrow + (size_t)h * D,
+                  qrow, S - q_lo0 - kBlockQ, D, tid);
+  cp_async_commit();
+  {
+    const int k_lo = kt_lo * kBlockK;
+    load_tile<DP>(sK, kb + (size_t)k_lo * krow, krow, S - k_lo, D, tid);
+    load_tile<DP>(sV, vb + (size_t)k_lo * krow, krow, S - k_lo, D, tid);
+    cp_async_commit();
+  }
+
+  float o[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[c][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+  const int row0 = q_lo + warp * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const uint32_t sQw = sQ + wg * kTile;
+
+  int st = 0;
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    if (kt < kt_hi) {  // next tile into the other stage, in flight during this one
+      const int k_lo = (kt + 1) * kBlockK;
+      load_tile<DP>(sK + (st ^ 1) * kTile, kb + (size_t)k_lo * krow, krow, S - k_lo, D, tid);
+      load_tile<DP>(sV + (st ^ 1) * kTile, vb + (size_t)k_lo * krow, krow, S - k_lo, D, tid);
+    }
+    cp_async_commit();
+    cp_async_wait1();  // Q and this tile have landed (this thread's copies)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();   // ... and every thread's
+
+    if (rows && kt >= my_lo && kt <= my_hi) {
+      // S = Q K^T over DP / 16 k-steps of 16 columns.
+      float s[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = 0.f;
+      const uint32_t kst = sK + st * kTile;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kBlockBytes + (kk & 3) * 32;
+        wgmma_ss(s, smem_desc(sQw + off, 16, 1024), smem_desc(kst + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+
+      // Mask, scale (log2 units) and the online softmax on the fragments.
+      // (Testing the mask only on tiles a mask reaches into measured
+      // slower: the per-element test is cheaper than the branch.)
+      const int k_lo = kt * kBlockK;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int kj = k_lo + 8 * n + col0 + j;
+            const int qi = row0 + 8 * i;
+            bool ok = kj < S;
+            if (causal) ok = ok && kj <= qi;
+            if (window > 0) ok = ok && kj > qi - window;
+            float& x = s[4 * n + 2 * i + j];
+            x = ok ? x * scale_log2 : kNegInf;
+            mx[i] = fmaxf(mx[i], x);
+          }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        alpha[i] = exp2f(m[i] - mx[i]);
+        m[i] = mx[i];
+        l[i] *= alpha[i];
+      }
+      uint32_t pa[4][4];  // P as bf16: the A fragments of the four 16-key k-steps
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float p0 = exp2f(s[4 * n + 2 * i] - m[i]);
+          const float p1 = exp2f(s[4 * n + 2 * i + 1] - m[i]);
+          l[i] += p0 + p1;
+          pa[n >> 1][2 * (n & 1) + i] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+
+      // O += P V, per 64-column block of V, over four 16-key k-steps.
+      const uint32_t vst = sV + st * kTile;
+#pragma unroll
+      for (int c = 0; c < NB; ++c) fence_regs(o[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(o[c], pa[kk], smem_desc(vst + c * kBlockBytes + kk * 2048, 1024, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int c = 0; c < NB; ++c) fence_regs(o[c]);
+    }
+    __syncthreads();  // both warpgroups are done with this stage before it is refilled
+    st ^= 1;
+  }
+
+  if (!rows) return;
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row0 + 8 * i;
+    if (qi >= S) continue;
+    bf16* orow = out + ((size_t)b * S + qi) * qrow + (size_t)h * D;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int d = 64 * c + 8 * n + col0;
+        if (d < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+              o[c][4 * n + 2 * i] * inv[i], o[c][4 * n + 2 * i + 1] * inv[i]);
+      }
+  }
+}
+
+template <int DP>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S,
+                 int H, int KV, int D, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  // Two Q tiles, two K and two V stages, + alignment slack.
+  const size_t smem = 6 * (size_t)(DP / 64) * kBlockBytes + 1024;
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(H, B, (S + 2 * kBlockQ - 1) / (2 * kBlockQ));
+  flash_wgmma_kernel<DP><<<grid, kFlashThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), S, H, KV, D, causal, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int S, int H, int KV, int D) {
+  return D % 8 != 0 || D > 256 || KV < 1 || H % KV != 0 || B < 1 || S < 1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. causal: 0/1. window <= 0 means none.
-// Returns the launch's cudaGetLastError() (0 on success).
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel). causal:
+// 0/1. window <= 0 means none. Returns the launch's cudaGetLastError()
+// (0 on success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* out, int B, int S, int H, int KV, int D,
                                    int causal, int window, float scale, void* stream) {
-  if (D % 8 != 0 || D > 256 || KV < 1 || H % KV != 0 || B < 1 || S < 1)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, H, KV, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (dtype == 0)
+    return dispatch_fma<float>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D <= 64) return launch_wgmma<64>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (D <= 128) return launch_wgmma<128>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (D <= 192) return launch_wgmma<192>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  return launch_wgmma<256>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+}
+
+// The previous bf16 design (the FMA kernel: the float32 route's
+// template, here at either dtype), kept for side-by-side timing only. Same
+// arguments as flash_attention_fwd.
+extern "C" int flash_attention_fma_fwd(int dtype, const void* q, const void* k,
+                                       const void* v, void* out, int B, int S, int H, int KV,
+                                       int D, int causal, int window, float scale,
+                                       void* stream) {
+  if (bad_shape(B, S, H, KV, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_fma<float>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+    return dispatch_fma<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,10 @@ against them on the card. All arithmetic is float32; outputs take the
 dtype of the first input (the query, ``r`` or ``a``), carried states are
 float32.
 
+``decode_attention_split_plain`` is the plain twin of the decode
+kernel's two passes (per-split partials, then their combine in split
+order).
+
 One departure from ``repro.kernels.ref``: a decode row with NO live slot
 (``active`` off, or every slot masked) outputs exact 0, which is what
 the kernels compute. The JAX oracle zeros only ``active=False`` rows.
@@ -81,6 +85,64 @@ def decode_attention_ref(
     live = mask.any(dim=-1)
     out = torch.where(live[:, None, None, None], out, 0.0)
     return out.to(q.dtype)
+
+
+def decode_attention_split_plain(
+    q: torch.Tensor,  # (B, 1, H, D)
+    cache_k: torch.Tensor,  # (B, S, KV, D)
+    cache_v: torch.Tensor,
+    cursor: torch.Tensor,  # (B,)
+    kv_pos: torch.Tensor,  # (B, S)
+    kv_valid: torch.Tensor,  # (B, S) bool
+    active: Optional[torch.Tensor] = None,  # (B,) bool
+    *,
+    window: Optional[int] = None,
+    n_split: int = 1,
+) -> torch.Tensor:
+    """The plain twin of the CUDA kernel's two passes. S is cut into
+    ``n_split`` ranges of whole 64-slot tiles (the kernel's), ``ceil(tiles /
+    n_split)`` tiles each (trailing ranges may be empty). Each range gives
+    its partial (m, l, acc): max logit, sum of exp(logit - m) over its live
+    slots, and P V with P rounded to the input dtype first, as the Pallas
+    kernel does (exact for float32); a range with no live slot gives
+    (-1e30, 0, 0). The partials are then combined in range order. A row
+    with no live slot, or with ``active`` off, outputs exact 0."""
+    b, _, h, d = q.shape
+    s, kv = cache_k.shape[1], cache_k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, kv, g, d).float()
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float()) / math.sqrt(d)
+    cursor = cursor.long()
+    kv_pos = kv_pos.long()
+    mask = (kv_pos <= cursor[:, None]) & kv_valid.bool()
+    if window is not None:
+        mask &= kv_pos > (cursor[:, None] - window)
+    if active is not None:
+        mask &= active.bool()[:, None]
+    mask = mask[:, None, None, :]  # (B, 1, 1, S)
+    vf = cache_v.float()
+    tiles = -(-s // 64)
+    per = -(-tiles // n_split) * 64  # slots per range
+    parts = []
+    for z in range(n_split):
+        lo, hi = min(z * per, s), min((z + 1) * per, s)
+        if lo == hi:  # an empty trailing range: no live slot
+            parts.append((torch.full_like(logits[..., 0], NEG_INF),
+                          torch.zeros_like(logits[..., 0]), torch.zeros_like(qg)))
+            continue
+        lg = torch.where(mask[..., lo:hi], logits[..., lo:hi], NEG_INF)
+        m = lg.amax(dim=-1)  # (B, KV, G); NEG_INF where no slot is live
+        p = torch.where(mask[..., lo:hi], torch.exp(lg - m[..., None]), 0.0)
+        pv = p.to(q.dtype).float()
+        acc = torch.einsum("bkgs,bskd->bkgd", pv, vf[:, lo:hi])
+        parts.append((m, p.sum(dim=-1), acc))
+    m_all = torch.stack([m for m, _, _ in parts])  # (n_split, B, KV, G)
+    mm = m_all.amax(dim=0)
+    wts = torch.exp(m_all - mm)
+    ll = sum(w * l for w, (_, l, _) in zip(wts, parts))
+    acc = sum(w[..., None] * a for w, (_, _, a) in zip(wts, parts))
+    out = torch.where(ll[..., None] > 0, acc / torch.clamp(ll, min=1e-30)[..., None], 0.0)
+    return out.reshape(b, 1, h, d).to(q.dtype)
 
 
 def rglru_ref(

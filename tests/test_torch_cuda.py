@@ -13,8 +13,9 @@ import torch
 
 from repro_torch.configs.registry import tiny
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.decode_attention import decode_attention_plain, plan_splits
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.ref import decode_attention_split_plain
 from repro_torch.kernels.rglru import rglru_scan_plain
 from repro_torch.kernels.wkv6 import wkv6_plain
 from repro_torch.serving.engine import InferenceEngine
@@ -57,6 +58,105 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     after = ops.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "decode_attention": 1, "flash_attention": 1, "wkv6": 0, "rglru_scan": 0}
+
+
+# (B, S, KV, G, D, window, ring): D in {8, 16, 64, 256}, S in {1, 63, 509,
+# 2048}, G in {1, 4, 16, 64}; granite's and recurrentgemma's served shapes.
+DECODE_CASES = [
+    (3, 1, 2, 4, 16, None, False),
+    (3, 63, 1, 16, 8, None, False),
+    (4, 509, 2, 4, 64, 100, False),
+    (8, 2048, 8, 4, 64, None, False),
+    (8, 2048, 1, 16, 256, 2048, True),
+    (2, 509, 1, 64, 256, None, False),
+    (3, 2048, 4, 1, 64, 300, True),
+    (2, 63, 2, 64, 16, 13, True),
+]
+
+
+def _decode_case(cuda, dtype, case):
+    """Inputs for one case: row 0 has every split but the first (or, on a
+    ring, the first half of the slots) dead; the last row is inactive."""
+    b, s, kv, g, d, window, ring = case
+    gen = torch.Generator(device=cuda).manual_seed(s + 7 * g + d)
+    h = kv * g
+    q = torch.randn((b, 1, h, d), generator=gen, device=cuda).to(dtype)
+    ck = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(dtype)
+    cv = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(dtype)
+    if ring:
+        cursor = torch.randint(s, 3 * s, (b,), generator=gen, device=cuda).to(torch.int32)
+        pos = torch.stack([torch.randperm(s, generator=gen, device=cuda) + int(c) - s + 1
+                           for c in cursor]).to(torch.int32)
+        holes = torch.rand((b, s), generator=gen, device=cuda) < 0.2
+        pos = torch.where(holes, -1, pos).to(torch.int32)
+        valid = pos >= 0
+        valid[0, : s // 2] = False
+    else:
+        cursor = torch.randint(0, s, (b,), generator=gen, device=cuda).to(torch.int32)
+        cursor[0] = min(5, s - 1)
+        pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+        valid = pos <= cursor[:, None]
+    active = torch.ones(b, dtype=torch.bool, device=cuda)
+    active[-1] = False
+    return (q, ck, cv, cursor, pos.contiguous(), valid.contiguous(), active), window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "B{}-S{}-KV{}-G{}-D{}-w{}-ring{}".format(*c))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kernel_on_card(cuda, dtype, case):
+    """The split-S decode kernel (mma.sync in bf16, FMA in float32) against
+    the plain version and its split twin, bit-identical on a repeat, exact
+    0 on the inactive row, one launch counted per call."""
+    args, window = _decode_case(cuda, dtype, case)
+    b, s, kv = case[0], case[1], case[2]
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(*args, window=window)
+    again = ops.decode_attention(*args, window=window)
+    assert ops.launch_counts()["decode_attention"] == before + 2
+    assert torch.equal(got, again)
+    want = decode_attention_plain(*args, window=window)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    n_split = plan_splits(b, kv, s, torch.cuda.get_device_properties(cuda).multi_processor_count)[0]
+    twin = decode_attention_split_plain(*args, window=window, n_split=n_split)
+    torch.testing.assert_close(got.float(), twin.float(), atol=tol, rtol=tol)
+    assert float(got[-1].float().abs().max()) == 0.0
+    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+
+
+# (B, S, H, KV, D, causal, window)
+FLASH_CASES = [
+    (1, 1, 4, 4, 8, True, None),
+    (2, 63, 4, 1, 16, True, 13),
+    (2, 509, 16, 4, 64, True, None),
+    (1, 509, 16, 1, 256, True, 2048),
+    (1, 509, 64, 1, 32, False, None),
+    (1, 2048, 4, 4, 64, True, 300),
+    (2, 100, 8, 2, 32, False, 23),
+    (8, 512, 32, 8, 64, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "B{}-S{}-H{}-KV{}-D{}-c{}-w{}".format(*c))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_card(cuda, dtype, case):
+    """Flash attention (wgmma in bf16, FMA in float32) against the plain
+    version, bit-identical on a repeat, one launch counted per call."""
+    b, s, h, kv, d, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(s + h + d)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(dtype)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == before + 2
+    assert torch.equal(got, again)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert got.dtype == dtype
 
 
 @pytest.mark.cuda
