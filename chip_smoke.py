@@ -12,19 +12,24 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              prints ptxas' register and spill lines and, from
              `cuobjdump -sass`, each library's count of tensor-core
              (HGMMA, HMMA) and async-copy (UTMALDG, LDGSTS) instructions;
-             fails unless flash_attention has HGMMA and decode_attention
-             HMMA.
+             fails unless flash_attention has HGMMA, decode_attention and
+             wkv6 (its chunked design) HMMA.
 3. kernels — holds each kernel against its plain PyTorch version at the
              main path's shapes, in bf16 (2e-2) and float32 (2e-5): the
              two attention kernels at granite-3-2b's and recurrentgemma-
              9b's shapes (decode also for bit-identical repeats), wkv6 at
-             rwkv6-1.6b's, rglru_scan at recurrentgemma-9b's; times
-             kernel, plain version and, for attention, SDPA (the
-             yardstick) and the previous bf16 design in turns with the
-             kernel (new, old, old, new). Kernel, previous and SDPA times
-             are device times (a CUDA graph of 20 calls, replayed); the
-             plain versions are timed eagerly, and so is each attention
-             kernel's wrapper once more, for its host-inclusive time.
+             rwkv6-1.6b's (both designs: chunked for bf16 from 64 steps,
+             sequential for float32 and decode's single step; the chunked
+             one also at extreme decays, bit-identical repeats),
+             rglru_scan at recurrentgemma-9b's; times kernel, plain
+             version and, for attention, SDPA (the yardstick), and the
+             previous design in turns with the kernel (new, old, old,
+             new): bf16 attention, and wkv6 at (B, S) = (8, 512), (1, 512)
+             and (8, 1) against its sequential design. Kernel, previous
+             and SDPA times are device times (a CUDA graph of 20 calls,
+             replayed); the plain versions are timed eagerly, and so is
+             each attention kernel's wrapper once more, for its
+             host-inclusive time.
 4. model   — granite-3-2b, rwkv6-1.6b and recurrentgemma-9b at full width,
              2-3 layers, float32: prefill and decode logits on the kernel
              path (default impl) against impl="dense", and decode against
@@ -42,9 +47,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              launch counts are this run's).
 
 Before the last line it prints the nvidia-smi line and one JSON object
-with a row per kernel (the attention rows with `previous_ms`, the
-previous bf16 design's time; null for the recurrences); the last line is
-the device record.
+with a row per kernel (`previous_ms`: the previous design's time, null
+for rglru_scan; the wkv6 row also has `b1_*` and `decode_*` times and
+bounds at (1, 512) and (8, 1)); the last line is the device record.
 """
 from __future__ import annotations
 
@@ -494,18 +499,39 @@ def recurrence_kernels(torch, report):
     gen = torch.Generator(device="cuda").manual_seed(4321)
     b, h, k = 8, 32, 64
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(s, dt, wdt, st) for s in (PREFILL_SEQ, 1, 509)
-             for dt, wdt in ((bf16, f32), (f32, f32)) for st in (False, True)]
-    for s, dt, wdt, with_state in cases:
-        r, kk, v, w, u, state = wkv6_inputs(torch, gen, b, s, h, k, dt, wdt, with_state)
+    shapes = ((b, PREFILL_SEQ), (b, 1), (b, 509), (1, PREFILL_SEQ))
+    cases = [(bb, s, dt, wdt, st) for bb, s in shapes
+             for dt, wdt in ((bf16, f32), (bf16, bf16), (f32, f32)) for st in (False, True)]
+    for bb, s, dt, wdt, with_state in cases:
+        r, kk, v, w, u, state = wkv6_inputs(torch, gen, bb, s, h, k, dt, wdt, with_state)
         got, last = wk.wkv6(r, kk, v, w, u, state)
         want, want_last = wk.wkv6_plain(r, kk, v, w, u, state)
         torch.cuda.synchronize()
         name = "bfloat16" if dt == bf16 else "float32"
-        label = f"wkv6 B={b} S={s} H={h} K=V={k} r/k/v {name} w float32 state={with_state}"
+        design = "chunked" if wk.uses_chunked(dt, s) else "sequential"
+        label = (f"wkv6 B={bb} S={s} H={h} K=V={k} r/k/v {name} w {str(wdt)[6:]} "
+                 f"state={with_state} [{design}]")
         err = assert_close(label, got, want, TOL[name])
         err_s = assert_close(label + " (last state)", last, want_last, TOL[name])
         log(f"{label}: max_abs_err out {err:.3e}, state {err_s:.3e}")
+    # Extreme decays on the chunked design: w = 0 (log w clamped), w = 1
+    # (no decay: the state grows over all 512 steps), and strong and mild
+    # channels side by side.
+    for label, fill in (("w = 0", 0.0), ("w = 1", 1.0), ("mixed", None)):
+        r, kk, v, w, u, state = wkv6_inputs(torch, gen, b, PREFILL_SEQ, h, k, bf16, f32, True)
+        if fill is None:
+            w = torch.where(torch.arange(k, device="cuda") % 2 == 0, w * 1e-3, 0.99 + 0.01 * w)
+        else:
+            w = torch.full_like(w, fill)
+        got, last = wk.wkv6(r, kk, v, w, u, state)
+        want, want_last = wk.wkv6_plain(r, kk, v, w, u, state)
+        torch.cuda.synchronize()
+        err = max(assert_close(f"wkv6 chunked {label}", got, want, TOL["bfloat16"]),
+                  assert_close(f"wkv6 chunked {label} state", last, want_last, TOL["bfloat16"]))
+        again = wk.wkv6(r, kk, v, w, u, state)
+        if not (torch.equal(got, again[0]) and torch.equal(last, again[1])):
+            raise AssertionError(f"wkv6 chunked {label}: two calls differ")
+        log(f"wkv6 chunked B={b} S={PREFILL_SEQ} {label}: max_abs_err={err:.3e}, repeat identical")
     # Decode writes the arena's state in place: state_out is the input.
     r, kk, v, w, u, state = wkv6_inputs(torch, gen, b, 1, h, k, bf16, f32, True)
     want, want_last = wk.wkv6_plain(r, kk, v, w, u, state.clone())
@@ -531,34 +557,48 @@ def recurrence_kernels(torch, report):
         err_h = assert_close(label + " (last h)", last, want_last, TOL[name])
         log(f"{label}: max_abs_err h {err:.3e}, last {err_h:.3e}")
 
-    # ----- timing at the prefill shapes --------------------------------
-    # wkv6: rwkv6-1.6b's largest prefill bucket, bf16 r/k/v, f32 w, with
-    # an initial state (read once) and the last state written.
-    s = PREFILL_SEQ
-    base = wkv6_inputs(torch, gen, b, s, h, k, bf16, f32, True)
-    per_copy = sum(t.numel() * t.element_size() for t in base)
-    inputs = [base] + [tuple(t.clone() for t in base) for _ in range(n_copies(per_copy) - 1)]
-    got, _ = wk.wkv6(*base)
-    err = assert_close("wkv6 timed case", got, wk.wkv6_plain(*base)[0], TOL["bfloat16"])
-    ms = device_ms(lambda *a: wk.wkv6(*a), inputs)
-    plain_ms = time_ms(lambda *a: wk.wkv6_plain(*a), inputs, iters=3, warmup=1)
-    r, kk, v, w, u, state = base
-    nbytes = (3 * r.numel() * r.element_size() + w.numel() * 4 + u.numel() * u.element_size()
-              + r.numel() * r.element_size()  # out, in r's dtype (V = K)
-              + 2 * state.numel() * 4)  # state read and written
-    flops = 4 * k * k * b * h * s  # state update and output product, float32
-    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    # ----- timing at the served shapes -----------------------------------
+    # wkv6 (bf16 r/k/v, f32 w, an initial state read once and the last
+    # state written) at rwkv6-1.6b's largest prefill bucket, its batch-1
+    # prefill and its decode step, each in turns with the sequential design.
+    timed = {}
+    for tag, bb, s in (("", b, PREFILL_SEQ), ("b1_", 1, PREFILL_SEQ), ("decode_", b, 1)):
+        base = wkv6_inputs(torch, gen, bb, s, h, k, bf16, f32, True)
+        per_copy = sum(t.numel() * t.element_size() for t in base)
+        inputs = [base] + [tuple(t.clone() for t in base)
+                           for _ in range(n_copies(per_copy) - 1)]
+        got, _ = wk.wkv6(*base)
+        err = assert_close(f"wkv6 timed B={bb} S={s}", got, wk.wkv6_plain(*base)[0],
+                           TOL["bfloat16"])
+        ms, previous_ms = in_turns(lambda *a: wk.wkv6(*a), lambda *a: wk.previous_design(*a),
+                                   inputs)
+        r, kk, v, w, u, state = base
+        nbytes = (3 * r.numel() * r.element_size() + w.numel() * 4
+                  + u.numel() * u.element_size()
+                  + r.numel() * r.element_size()  # out, in r's dtype (V = K)
+                  + 2 * state.numel() * 4)  # state read and written
+        flops = 4 * k * k * bb * h * s  # state update and output product, float32
+        bound_ms, bound_by = bound(nbytes, flops, "float32")
+        timed[tag] = dict(ms=ms, previous_ms=previous_ms, bound_ms=bound_ms, err=err)
+        design = "chunked" if wk.uses_chunked(bf16, s) else "sequential"
+        log(f"wkv6 timed B={bb} S={s} H={h} K=V={k} bf16/f32 [{design}]: kernel {ms:.4f} ms, "
+            f"previous design (sequential) {previous_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({nbytes} bytes, {flops} fp32 flops)")
+        if tag == "":
+            main_bound = (bound_ms, bound_by)
+            plain_ms = time_ms(lambda *a: wk.wkv6_plain(*a), inputs, iters=3, warmup=1)
     report.setdefault("wkv6", {}).update(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
-        replaces="src/repro/kernels/wkv6.py:99", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        previous_ms=None,
+        replaces="src/repro/kernels/wkv6.py:99", max_abs_err=timed[""]["err"],
+        ms=timed[""]["ms"], plain_ms=plain_ms, bound_ms=main_bound[0], bound_by=main_bound[1],
+        library_ms=None, previous_ms=timed[""]["previous_ms"],
+        **{f"{tag}{key}": timed[tag][key] for tag in ("b1_", "decode_")
+           for key in ("ms", "previous_ms", "bound_ms")},
     )
-    log(f"wkv6 timed B={b} S={s} H={h} K=V={k} bf16/f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
-        f"{flops} fp32 flops); no single library call")
+    log(f"wkv6 plain at B={b} S={PREFILL_SEQ}: {plain_ms:.4f} ms; no single library call")
     # rglru_scan: recurrentgemma-9b's largest prefill bucket, float32 gates,
     # no h0 (the model's prefill), last h written.
+    s = PREFILL_SEQ
     base = rglru_inputs(torch, gen, bsz, s, d, f32, False)[:2]
     per_copy = sum(t.numel() * t.element_size() for t in base)
     inputs = [base] + [tuple(t.clone() for t in base) for _ in range(n_copies(per_copy) - 1)]
@@ -792,7 +832,8 @@ def main() -> int:
                 log(f"  ptxas {ln}")
             counts = sass_counts(path)
             log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
-            need = {"flash_attention": "HGMMA", "decode_attention": "HMMA"}.get(name)
+            need = {"flash_attention": "HGMMA", "decode_attention": "HMMA",
+                    "wkv6": "HMMA"}.get(name)
             if need and counts[need] < 1:
                 raise AssertionError(f"{name}: no {need} in its SASS")
     with Phase("kernels"):
@@ -815,7 +856,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")
     names = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
-    rows = [{k: report[n][k] for k in keys} for n in names]
+    extra = ("b1_ms", "b1_previous_ms", "b1_bound_ms", "decode_ms", "decode_previous_ms",
+             "decode_bound_ms")
+    rows = [{k: report[n][k] for k in keys + extra if k in keys or k in report[n]}
+            for n in names]
     log(f"total run time {time.perf_counter() - T_START:.3f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -10,7 +10,8 @@ float32.
 
 ``decode_attention_split_plain`` is the plain twin of the decode
 kernel's two passes (per-split partials, then their combine in split
-order).
+order); ``wkv6_chunked_plain`` is the plain twin of the chunked wkv6
+kernel's arithmetic.
 
 One departure from ``repro.kernels.ref``: a decode row with NO live slot
 (``active`` off, or every slot masked) outputs exact 0, which is what
@@ -190,3 +191,109 @@ def wkv6_ref(
         outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], st + uf * kv))
         st = wf[:, t, :, :, None] * st + kv
     return torch.stack(outs, dim=1).to(r.dtype), st
+
+
+WKV_LOG_CLAMP = -60.0  # log w is clamped below here: w = 0 stays finite
+
+
+def wkv6_chunked_plain(
+    r: torch.Tensor,  # (B, S, H, K)
+    k: torch.Tensor,  # (B, S, H, K)
+    v: torch.Tensor,  # (B, S, H, V)
+    w: torch.Tensor,  # (B, S, H, K)
+    u: torch.Tensor,  # (H, K)
+    state: Optional[torch.Tensor] = None,  # (B, H, K, V)
+    *,
+    chunk: int = 64,
+    half: int = 8,
+    operand_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of the chunked CUDA kernel's arithmetic (``wkv6``
+    on bfloat16 inputs with S >= 64). S is padded to whole chunks with
+    identity steps (w = 1, r = k = v = 0). With a = max(log w, -60), L its
+    running sum inside each ``half``-step block (restarted at each) and T
+    a block's total:
+
+    - each chunk's state contribution (k e^(G_end - G))^T v and decay
+      e^G_end, carried chunk by chunk in float32;
+    - q_t = r_t e^(L_{t-1}) (referenced at its block's start) and
+      kh_s = k_s e^(T - L_s) (decayed to its block's end);
+    - per query block: (q e^(T of the blocks before)) S_c; against each
+      earlier key block, (q e^(T of the blocks between)) kh^T; inside the
+      block, the product w_{s+1} ... w_{t-1} taken step by step, with
+      r_t . (u k_t) on the diagonal.
+
+    Every exponent is a sum of a's, <= 0, never a difference of two large
+    running sums. The decayed operands, the scores and S_c go to the
+    tensor cores as two parts in ``operand_dtype`` (default r's dtype),
+    hi = round(x) and lo = round(x - hi), as the kernel splits them (it
+    drops the lo x lo product, about 2^-16 of each term); with float32
+    this is the exact chunked form. Returns (o in r's dtype, last state in
+    float32)."""
+    od = r.dtype if operand_dtype is None else operand_dtype
+
+    def rnd(x):
+        hi = x.to(od).float()
+        return hi + (x - hi).to(od).float()
+
+    b, s, h, dk = r.shape
+    dv = v.shape[-1]
+    n = -(-s // chunk)
+    nh = chunk // half
+    pad = n * chunk - s
+
+    def blocks(x, fill):  # (B, S, H, D) -> (B, H, n, nh, half, D), float32
+        x = x.float()
+        if pad:
+            x = torch.cat([x, x.new_full((b, pad) + x.shape[2:], fill)], dim=1)
+        return x.reshape(b, n, nh, half, h, x.shape[-1]).permute(0, 4, 1, 2, 3, 5)
+
+    rr, kk, vv, ww = blocks(r, 0.0), blocks(k, 0.0), blocks(v, 0.0), blocks(w, 1.0)
+    uf = u.float()[None, :, None, None, :]
+    a = torch.clamp(torch.log(ww), min=WKV_LOG_CLAMP)
+    L = torch.cumsum(a, dim=4)
+    Lx = torch.cat([torch.zeros_like(L[:, :, :, :, :1]), L[:, :, :, :, :-1]], dim=4)
+    tot = L[:, :, :, :, -1]  # (B, H, n, nh, K)
+    to_end = tot[:, :, :, :, None] - L  # decay from s to its block's end
+    # Sums of the later (post) and earlier (base) blocks' totals.
+    rev = torch.flip(torch.cumsum(torch.flip(tot, [3]), dim=3), [3])
+    post = torch.cat([rev[:, :, :, 1:], torch.zeros_like(rev[:, :, :, :1])], dim=3)
+    kdec = rnd(kk * torch.exp(to_end + post[:, :, :, :, None]))
+    d_state = torch.einsum("bhnjsk,bhnjsv->bhnkv", kdec, vv)
+    decay = torch.exp(rev[:, :, :, 0])  # (B, H, n, K)
+
+    x = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    entering = []
+    for c in range(n):
+        entering.append(x)
+        x = decay[:, :, c, :, None] * x + d_state[:, :, c]
+    s_c = rnd(torch.stack(entering, dim=2))  # (B, H, n, K, V)
+
+    q = rr * torch.exp(Lx)
+    kh = rnd(kk * torch.exp(to_end))
+    outs = []
+    for i in range(nh):
+        # factor[m] = e^(T_m + ... + T_{i-1}), summed from the last block.
+        factor = [torch.ones_like(tot[:, :, :, 0])] * (i + 1)
+        between = torch.zeros_like(tot[:, :, :, 0])
+        for m in range(i - 1, -1, -1):
+            between = between + tot[:, :, :, m]
+            factor[m] = torch.exp(between)
+        qi = lambda m: rnd(q[:, :, :, i] * factor[m][:, :, :, None])
+        o = torch.einsum("bhntk,bhnkv->bhntv", qi(0), s_c)
+        for j in range(i):
+            sc = torch.einsum("bhntk,bhnsk->bhnts", qi(j + 1), kh[:, :, :, j])
+            o = o + torch.einsum("bhnts,bhnsv->bhntv", rnd(sc), vv[:, :, :, j])
+        # Inside the block: f[s] = w_{s+1} ... w_{s+d-1} for pairs (s + d, s).
+        ri, ki, wi = rr[:, :, :, i], kk[:, :, :, i], ww[:, :, :, i]
+        diag = torch.zeros(ri.shape[:-1] + (half,), dtype=torch.float32, device=r.device)
+        diag.diagonal(dim1=-2, dim2=-1).copy_((ri * uf * ki).sum(-1))
+        f = torch.ones_like(ki[:, :, :, : half - 1])
+        for d in range(1, half):
+            vals = (ri[:, :, :, d:] * f * ki[:, :, :, : half - d]).sum(-1)
+            diag.diagonal(offset=-d, dim1=-2, dim2=-1).copy_(vals)
+            f = f[:, :, :, :-1] * wi[:, :, :, d : half - 1]
+        outs.append(o + torch.einsum("bhnts,bhnsv->bhntv", rnd(diag), vv[:, :, :, i]))
+    o = torch.stack(outs, dim=3).reshape(b, h, n * chunk, dv)[:, :, :s]
+    return o.permute(0, 2, 1, 3).to(r.dtype), x

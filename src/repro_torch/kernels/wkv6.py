@@ -1,16 +1,31 @@
-"""RWKV-6 WKV recurrence: the Hopper kernel's wrapper.
+"""RWKV-6 WKV recurrence: the Hopper kernels' wrapper.
 
-The kernel is ``csrc/wkv6.cu`` (its header says what it replaces, what
-bounds it and how). ``wkv6`` launches it on CUDA tensors and raises on
-anything else; ``wkv6_plain`` is the plain PyTorch version that ``ops``
-runs for CPU tensors and that the kernel is held against. ``launches``
-counts kernel launches.
+The kernels are in ``csrc/wkv6.cu`` (its header says what they replace,
+what bounds them and how). ``wkv6`` launches them on CUDA tensors and
+raises on anything else; ``wkv6_plain`` is the plain PyTorch version that
+``ops`` runs for CPU tensors and that the kernels are held against.
 
 Per (batch, head), with a K x V float32 state S:
 ``o_t = r_t (S + diag(u) k_tᵀ v_t)``, then ``S <- diag(w_t) S + k_tᵀ v_t``.
 r, k, v and u share one dtype (float32 or bfloat16); w is float32 (as the
 model makes it) or that dtype (as the reference's bfloat16 sweep passes
 it); o comes out in r's dtype, the state in float32.
+
+Two designs, chosen by ``uses_chunked(dtype, S)`` alone, so one shape
+always takes one path and two calls agree bit for bit:
+
+- **chunked** (bfloat16 r and S >= ``CHUNK``): 64-step chunks in
+  parallel, their products on the tensor cores with each decayed operand
+  split into two bf16 parts, the state carried between chunks in float32;
+  three CUDA launches in a fixed order. ``ref.wkv6_chunked_plain`` is the
+  plain twin of its arithmetic.
+- **sequential** (float32 r, whose 2e-5 tolerance bf16 products cannot
+  meet, or S < ``CHUNK``, as decode's S = 1): one block per (batch, head)
+  stepping through time with the state in registers.
+
+``launches`` counts calls that launched a kernel: one per call, though a
+chunked call is three CUDA launches. ``previous_design`` runs the
+sequential kernel on any shape, for side-by-side timing only.
 """
 from __future__ import annotations
 
@@ -24,20 +39,31 @@ from repro_torch.kernels.decode_attention import _check
 from repro_torch.kernels.ref import wkv6_ref
 
 NAME = "wkv6"
+CHUNK = 64  # steps per chunk of the chunked design (kT in the source)
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD = 64  # K and V at most (the state column lives in registers)
-_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = {
+    "wkv6_fwd": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "wkv6_chunked_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+}
 
 
-def _lib():
-    lib = _build.load(NAME)
-    fn = lib.wkv6_fwd
+def _fn(symbol: str):
+    fn = getattr(_build.load(NAME), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[symbol]
         fn.restype = ctypes.c_int
     return fn
+
+
+def uses_chunked(dtype: torch.dtype, s: int) -> bool:
+    """Whether a call with r of ``dtype`` over ``s`` steps takes the
+    chunked kernel (else the sequential one)."""
+    return dtype == torch.bfloat16 and s >= CHUNK
 
 
 def wkv6_plain(
@@ -58,21 +84,8 @@ def wkv6_plain(
     return out, last
 
 
-def wkv6(
-    r: torch.Tensor,  # (B, S, H, K)
-    k: torch.Tensor,  # (B, S, H, K)
-    v: torch.Tensor,  # (B, S, H, V)
-    w: torch.Tensor,  # (B, S, H, K)
-    u: torch.Tensor,  # (H, K)
-    state: Optional[torch.Tensor] = None,  # (B, H, K, V) float32; None = zeros
-    *,
-    state_out: Optional[torch.Tensor] = None,  # (B, H, K, V) float32
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel. CUDA tensors only: raises otherwise.
-    Returns (o, last state). The last state goes to ``state_out`` when
-    given, which may be ``state`` itself: the serving engine's arena is
-    then updated in place."""
-    global launches
+def _launch(r, k, v, w, u, state, state_out, chunked: bool):
+    """Check the arguments and run one call of the chosen design."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 kernel needs CUDA tensors, got {r.device}")
     if r.dtype not in _DTYPES or w.dtype not in (torch.float32, r.dtype):
@@ -99,16 +112,50 @@ def wkv6(
     else:
         _check("state_out", state_out, (b, h, dk, dv), torch.float32, dev)
     out = torch.empty((b, s, h, dv), dtype=r.dtype, device=dev)
-    err = _lib()(
-        _DTYPES[r.dtype], _DTYPES[w.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-        w.data_ptr(), u.data_ptr(), None if state is None else state.data_ptr(),
-        out.data_ptr(), state_out.data_ptr(), b, s, h, dk, dv,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            None if state is None else state.data_ptr(), out.data_ptr(), state_out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if chunked:
+        # Scratch: each chunk's state contribution, then the state entering
+        # it (B, H, C, K, V), and each chunk's decay (B, H, C, K).
+        n = -(-s // CHUNK)
+        scratch = torch.empty(b * h * n * dk * (dv + 1), dtype=torch.float32, device=dev)
+        slots = scratch.data_ptr()
+        err = _fn("wkv6_chunked_fwd")(
+            _DTYPES[w.dtype], *ptrs, slots, slots + 4 * b * h * n * dk * dv,
+            b, s, h, dk, dv, stream)
+    else:
+        err = _fn("wkv6_fwd")(_DTYPES[r.dtype], _DTYPES[w.dtype], *ptrs, b, s, h, dk, dv, stream)
     if err:
         raise RuntimeError(f"wkv6 launch failed: cudaError {err}")
-    launches += 1
     return out, state_out
 
 
-__all__ = ["wkv6", "wkv6_plain", "launches"]
+def wkv6(
+    r: torch.Tensor,  # (B, S, H, K)
+    k: torch.Tensor,  # (B, S, H, K)
+    v: torch.Tensor,  # (B, S, H, V)
+    w: torch.Tensor,  # (B, S, H, K)
+    u: torch.Tensor,  # (H, K)
+    state: Optional[torch.Tensor] = None,  # (B, H, K, V) float32; None = zeros
+    *,
+    state_out: Optional[torch.Tensor] = None,  # (B, H, K, V) float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel that ``uses_chunked`` picks. CUDA tensors
+    only: raises otherwise. Returns (o, last state). The last state goes to
+    ``state_out`` when given, which may be ``state`` itself: the serving
+    engine's arena is then updated in place."""
+    global launches
+    out = _launch(r, k, v, w, u, state, state_out, uses_chunked(r.dtype, r.shape[1]))
+    launches += 1
+    return out
+
+
+def previous_design(r, k, v, w, u, state=None, *, state_out=None):
+    """The sequential kernel on any shape (the only design before the
+    chunked one), for side-by-side timing. Not counted in ``launches``;
+    ``ops`` never calls it on the chunked shapes."""
+    return _launch(r, k, v, w, u, state, state_out, chunked=False)
+
+
+__all__ = ["wkv6", "wkv6_plain", "launches", "uses_chunked", "previous_design"]

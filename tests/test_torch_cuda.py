@@ -15,7 +15,8 @@ from repro_torch.configs.registry import tiny
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain, plan_splits
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.ref import decode_attention_split_plain
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.kernels.ref import decode_attention_split_plain, wkv6_chunked_plain
 from repro_torch.kernels.rglru import rglru_scan_plain
 from repro_torch.kernels.wkv6 import wkv6_plain
 from repro_torch.serving.engine import InferenceEngine
@@ -211,6 +212,121 @@ def test_wkv6_kernel_matches_plain_on_card(cuda, shape, dtype, w_dtype, with_sta
         assert last2.data_ptr() == buf.data_ptr()
         assert torch.equal(out2, out) and torch.equal(buf, last)
     assert ops.launch_counts()["wkv6"] == before + (2 if state is not None else 1)
+
+
+WKV_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16)]
+
+
+def _wkv_inputs(cuda, b, s, h, k, dtype, w_dtype, seed, w=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=cuda)
+    r, kk, v = ((rn(b, s, h, k) * 0.5).to(dtype) for _ in range(3))
+    if w is None:
+        w = torch.sigmoid(rn(b, s, h, k)) * 0.5 + 0.45
+    u = (rn(h, k) * 0.1).to(dtype)
+    return r, kk, v, w.to(w_dtype), u, rn(b, h, k, k) * 0.1
+
+
+def _check_wkv6(r, kk, v, w, u, state):
+    """One call through ``ops`` against the plain version and, on the
+    chunked path, against its plain twin; then the same call with the
+    state written in place, which must agree bit for bit."""
+    before = ops.launch_counts()["wkv6"]
+    out, last = ops.wkv6(r, kk, v, w, u, state)
+    assert ops.launch_counts()["wkv6"] == before + 1  # one per call, any design
+    tol = TOL[r.dtype]
+    want, want_last = wkv6_plain(r, kk, v, w, u, state)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(last).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(last, want_last, atol=tol, rtol=tol)
+    if wk.uses_chunked(r.dtype, r.shape[1]):
+        # The twin repeats the kernel's arithmetic: they differ by the
+        # order of float32 sums and by one bf16 rounding of o at most.
+        tw, tw_last = wkv6_chunked_plain(r, kk, v, w, u, state)
+        torch.testing.assert_close(out.float(), tw.float(), atol=1e-2, rtol=1e-2)
+        torch.testing.assert_close(last, tw_last, atol=1e-4, rtol=1e-4)
+    buf = state.clone()
+    out2, last2 = ops.wkv6(r, kk, v, w, u, buf, state_out=buf)
+    assert last2.data_ptr() == buf.data_ptr()
+    assert torch.equal(out2, out) and torch.equal(buf, last)
+    return out, last
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("s", [63, 64, 65, 509, 512])
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("dtype,w_dtype", WKV_PAIRS)
+def test_wkv6_designs_on_card(cuda, b, s, k, dtype, w_dtype):
+    """Both designs around the chunk boundary, at rwkv6-1.6b's 32 heads
+    of 64 and at 16 channels."""
+    _check_wkv6(*_wkv_inputs(cuda, b, s, 32 if k == 64 else 4, k, dtype, w_dtype, b + s + k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero", "denormal", "one", "mixed"])
+@pytest.mark.parametrize("dtype,w_dtype", WKV_PAIRS)
+def test_wkv6_extreme_decays_on_card(cuda, case, dtype, w_dtype):
+    b, s, h, k = 2, 200, 4, 64
+    shape = (b, s, h, k)
+    if case == "zero":
+        w = torch.zeros(shape, device=cuda)
+    elif case == "denormal":
+        w = torch.full(shape, 1e-40, device=cuda)
+    elif case == "one":
+        w = torch.ones(shape, device=cuda)
+    else:  # strong and mild channels side by side in every chunk
+        g = torch.Generator(device=cuda).manual_seed(9)
+        strong = torch.rand(shape, generator=g, device=cuda) * 1e-2
+        mild = 0.99 + torch.rand(shape, generator=g, device=cuda) * 0.01
+        w = torch.where(torch.arange(k, device=cuda) % 2 == 0, strong, mild)
+    _check_wkv6(*_wkv_inputs(cuda, b, s, h, k, dtype, w_dtype, len(case), w=w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["K=V=12", "K=24 V=16", "unaligned"])
+def test_wkv6_chunked_element_staging_on_card(cuda, case):
+    """The chunked kernel stages 16 bytes at a time only when K and V are
+    multiples of 8 and every pointer is 16-byte aligned; otherwise one
+    element at a time. Cover the second way."""
+    b, s, h = 2, 130, 4
+    if case == "unaligned":  # contiguous views two bytes past an aligned start
+        args = list(_wkv_inputs(cuda, b, s, h, 64, torch.bfloat16, torch.float32, 5))
+        for i in range(4):
+            buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype, device=cuda)
+            view = buf[1:].view(args[i].shape)
+            view.copy_(args[i])
+            args[i] = view
+        assert args[0].data_ptr() % 16
+        _check_wkv6(*args)
+        return
+    k = 12 if case == "K=V=12" else 24
+    r, kk, _, w, u, state = _wkv_inputs(cuda, b, s, h, k, torch.bfloat16, torch.float32, k)
+    dv = k if k == 12 else 16
+    g = torch.Generator(device=cuda).manual_seed(3)
+    v = (torch.randn((b, s, h, dv), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    state = torch.randn((b, h, k, dv), generator=g, device=cuda) * 0.1
+    _check_wkv6(r, kk, v, w, u, state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 64, 512])
+@pytest.mark.parametrize("dtype,w_dtype", WKV_PAIRS)
+def test_wkv6_dispatch_and_repeats_on_card(cuda, s, dtype, w_dtype):
+    """The design is a function of (dtype, S): the sequential shapes give
+    exactly what ``previous_design`` (the sequential kernel) gives, and
+    the chunked ones do not; two calls agree bit for bit on either path."""
+    args = _wkv_inputs(cuda, 8, s, 32, 64, dtype, w_dtype, s)
+    out, last = wk.wkv6(*args)
+    again, again_last = wk.wkv6(*args)
+    assert torch.equal(out, again) and torch.equal(last, again_last)
+    before = wk.launches
+    seq, seq_last = wk.previous_design(*args)
+    assert wk.launches == before  # timing only: not counted
+    same = torch.equal(out, seq) and torch.equal(last, seq_last)
+    assert same is not wk.uses_chunked(dtype, s)
+    assert wk.uses_chunked(dtype, s) is (dtype == torch.bfloat16 and s >= 64)
 
 
 @pytest.mark.cuda
