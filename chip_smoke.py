@@ -35,16 +35,32 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              path (default impl) against impl="dense", and decode against
              the full forward, at 2e-3 (recurrentgemma with a 64-token
              window, so the ring cache wraps).
-5. serve   — full granite-3-2b (40 layers, bf16, random weights from a
+5. graphs  — per model (granite-3-2b, rwkv6-1.6b, recurrentgemma-9b at
+             full width, bf16, 8 arena rows, decode seq 2048 / 2048 /
+             4096), the decode step and an 8-step chunk as CUDA graphs:
+             the chunk against 8 single-step replays on the same leased,
+             scattered rows (the arena snapshot and restored in place),
+             bit for bit; one replay against the eager step, bit for bit
+             (live logits and every arena leaf); the arena's storage
+             unchanged; launches per replay against the kernel calls of
+             one step.
+6. serve   — full granite-3-2b (40 layers, bf16, random weights from a
              seed) served by DeepRT through build_live_scheduler, one
              prefill and one decode category; checks admission,
-             conservation, zero decode compiles after warm-up, and that
-             both attention kernels launched while serving.
-6. serve_multitenant — the main path: the same over full granite-3-2b,
+             conservation, no miss, zero decode captures after warm-up,
+             and that both attention kernels launched while serving.
+             Decode steps are CUDA-graph replays.
+7. serve_multitenant — the main path: the same over full granite-3-2b,
              rwkv6-1.6b and recurrentgemma-9b from one engine and one
              DeepRT, a prefill and a decode category per model, with all
              four kernels launched while serving (the kernels line's
-             launch counts are this run's).
+             launch counts are this run's, replays included).
+8. serve_chunked — serve_multitenant's models and streams from an engine
+             built with chunk_depth=8 (chunk WCETs profiled for k = 1,
+             2, 4, 8, every chunk captured in that warm-up), plus per
+             model a burst of 8 decode jobs at one instant with a 30 s
+             deadline: every model serves chunks of 2 or more steps,
+             with no miss and zero decode captures while serving.
 
 Before the last line it prints the nvidia-smi line and one JSON object
 with a row per kernel (`previous_ms`: the previous design's time, null
@@ -666,7 +682,7 @@ def phase_model(torch, mid, n_layers, **overrides):
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
+def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth=1):
     """Serve full-width models (bf16, random weights from seed 0) from one
     engine and one DeepRT through build_live_scheduler: per model a
     prefill category (seq 512, batch buckets 1-8) and a decode category
@@ -674,11 +690,17 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
     stream's deadline is ``deadline_factor`` x the sum over the models of
     one decode step plus the largest prefill (profiled WCETs), its period
     half that. Checks admission of every category, conservation, zero
-    decode step builds after warm-up, that every kernel the models run
+    decode captures after warm-up, that every kernel the models run
     was launched while serving, and well-formed outputs. Returns the
-    served run's record and launch counts."""
+    served run's record and launch counts.
+
+    ``chunk_depth`` > 1 builds the engine to serve decode chunks that deep
+    (every depth profiled, and captured, in the warm-up), and adds per
+    model one burst of 8 decode jobs of its decode category, submitted at
+    one instant with a 30 s deadline, which the EDF worker fuses into
+    chunks: each model must serve at least one chunk of 2 or more steps."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import Category, Request
+    from repro_torch.core import Category, ChunkJob, Frame, JobInstance, Request
     from repro_torch.kernels import ops
     from repro_torch.serving.batcher_bridge import build_live_scheduler
     from repro_torch.serving.engine import InferenceEngine
@@ -692,7 +714,8 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
     for mid, dec_seq in decode_seq.items():
         cats += [(mid, (PREFILL_SEQ,), "prefill"), (mid, (dec_seq,), "decode")]
     t0 = time.perf_counter()
-    engine = InferenceEngine(cfgs, seed=0, max_slots=8, device="cuda")
+    engine = InferenceEngine(cfgs, seed=0, max_slots=8, chunk_depth=chunk_depth,
+                             device="cuda")
     torch.cuda.synchronize()
     for mid, cfg in cfgs.items():
         n_params = sum(t.numel() for t in _leaves(engine.params[mid]))
@@ -702,9 +725,12 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
     log(f"engine made on the card in {time.perf_counter() - t0:.3f} s")
 
     ops.reset_launch_counts()
+    t_prof = time.perf_counter()
     sched, engine, table = build_live_scheduler(
-        cfgs, cats, batch_sizes=(1, 2, 4, 8), engine=engine)
+        cfgs, cats, batch_sizes=(1, 2, 4, 8), engine=engine, chunk_depth=chunk_depth)
     profiling_launches = ops.launch_counts()
+    log(f"profiling (and decode captures: {len(engine._graphs)}) took "
+        f"{time.perf_counter() - t_prof:.3f} s")
     wcet = {}
     for mid, dec_seq in decode_seq.items():
         w_dec = table.wcet(mid, (dec_seq,), engine.max_slots)
@@ -714,6 +740,14 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
         log(f"profiled WCET {mid} (p99 of 5 runs): decode seq {dec_seq} x "
             f"{engine.max_slots} slots {w_dec * 1e3:.3f} ms; prefill seq {PREFILL_SEQ} by "
             "batch " + ", ".join(f"{bs}: {w * 1e3:.3f} ms" for bs, w in w_pre.items()))
+        if chunk_depth > 1:
+            depths = table.chunk_depths_profiled(mid, (dec_seq,))
+            if depths != [1, 2, 4, 8]:
+                raise AssertionError(f"{mid}: chunk depths profiled {depths}")
+            wk = {d: table.chunk_wcet(mid, (dec_seq,), d) * 1e3 for d in depths}
+            wcet[mid]["chunk_ms"] = wk
+            log(f"profiled chunk WCET {mid}: " + ", ".join(
+                f"k={d}: {w:.3f} ms ({w / d:.3f} ms a step)" for d, w in wk.items()))
     log(f"launches during profiling: {profiling_launches}")
 
     total = sum(w["decode_ms"] + w["prefill_ms"][8] for w in wcet.values()) / 1e3
@@ -733,6 +767,29 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
     if min(admitted.values()) < 1:
         raise AssertionError(f"admission: {admitted}; need >= 1 stream in every category")
 
+    chunks = {mid: [0, 0] for mid in decode_seq}  # chunks of k >= 2, their steps
+    if chunk_depth > 1:
+        dispatch = sched.device.dispatch_fn
+
+        def counting(job):
+            if isinstance(job, ChunkJob) and job.k > 1:
+                chunks[job.category.model_id][0] += 1
+                chunks[job.category.model_id][1] += job.k
+            return dispatch(job)
+
+        sched.device.dispatch_fn = counting
+        for i, (mid, dec_seq) in enumerate(decode_seq.items()):
+            def burst(cat=Category(mid, (dec_seq,)), rid=10_000 + i):
+                now = sched.loop.now
+                for idx in range(8):
+                    sched.metrics.record_ingest()
+                    f = Frame(request_id=rid, category=cat, index=idx, arrival_time=now,
+                              deadline=now + 30.0)
+                    sched.worker.submit(JobInstance(
+                        category=cat, frames=[f], release_time=now,
+                        relative_deadline=30.0, shape_key=cat.shape_key))
+            sched.loop.schedule(start + 0.2 * (i + 1), burst)
+
     ops.reset_launch_counts()
     t_run = time.perf_counter()
     m = sched.run()
@@ -745,13 +802,21 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
         f"dropped={m.dropped_frames} lost={m.lost_frames} ingested={ingested} "
         f"jobs={m.job_count} mean_batch={m.mean_batch:.3f} "
         f"miss_rate={m.miss_rate:.4f} p99_latency={m.latency_percentile(0.99) * 1e3:.3f} ms "
-        f"throughput={m.throughput:.3f} frames/s decode_compiles={engine.stats['decode_compiles']}")
+        f"throughput={m.throughput:.3f} frames/s decode_compiles={engine.stats['decode_compiles']} "
+        f"chunk_submits={m.chunk_submits} chunked_steps={m.chunked_steps} "
+        f"chunk_steps(engine)={engine.stats['chunk_steps']} chunks by model {chunks}")
     if m.completed_frames < 1:
         raise AssertionError("no frame completed")
     if m.completed_frames + m.dropped_frames + m.lost_frames != ingested:
         raise AssertionError("conservation: completed + dropped + lost != ingested")
     if engine.stats["decode_compiles"] != 0:
         raise AssertionError(f"decode_compiles = {engine.stats['decode_compiles']} after warm-up")
+    if m.missed_frames:
+        raise AssertionError(f"{m.missed_frames} frames missed their deadline")
+    if chunk_depth > 1 and min(n for n, _ in chunks.values()) < 1:
+        raise AssertionError(f"a model served no chunk of 2 or more steps: {chunks}")
+    if chunk_depth > 1 and min(steps for _, steps in chunks.values()) < 2:
+        raise AssertionError(f"chunked steps by model {chunks}")
     kinds = {k for cfg in cfgs.values() for k in cfg.block_pattern}
     needed = {"decode_attention", "flash_attention"} if kinds & {"attn", "swa"} else set()
     needed |= {"wkv6"} if "rwkv" in kinds else set()
@@ -780,14 +845,136 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor):
         log(f"{mid}: decode logits {tuple(logits.shape)} finite, prefill logits finite, "
             f"prefill tokens {nxt.tolist()}")
         del pre
+    # Stop the device's waiter thread: it holds the engine (and its
+    # parameters, arenas and graphs) for as long as it runs.
+    sched.device.close()
     return dict(
         wcet=wcet, period_ms=period * 1e3, deadline_ms=deadline * 1e3,
         miss_rate=m.miss_rate, p99_latency_ms=m.latency_percentile(0.99) * 1e3,
         throughput=m.throughput, completed=m.completed_frames, ingested=ingested,
         admitted=admitted, launches_serving=serving_launches,
-        launches_profiling=profiling_launches,
+        launches_profiling=profiling_launches, missed=m.missed_frames,
+        chunk_submits=m.chunk_submits, chunked_steps=m.chunked_steps,
+        chunks_by_model=chunks,
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
     )
+
+
+# Kernel wrapper calls per decode step (the captured launches of one step
+# replay), by model: granite's 40 attn layers; rwkv6's 24 rwkv layers;
+# recurrentgemma's 12 swa and 26 rglru layers.
+CALLS_PER_STEP = {
+    MID: {"decode_attention": 40, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
+    RWKV: {"decode_attention": 0, "flash_attention": 0, "wkv6": 24, "rglru_scan": 0},
+    RGEMMA: {"decode_attention": 12, "flash_attention": 0, "wkv6": 0, "rglru_scan": 26},
+}
+
+
+def phase_graphs(torch, mid, seq, k=8):
+    """One model at full width (bf16, 8 arena rows, seq ``seq``) with its
+    decode step and k-step chunk as CUDA graphs. Scattered rows are
+    leased at mixed cursors; the arena is snapshot, one k-step chunk runs
+    with per-step row subsets (one step empty), the arena is restored IN
+    PLACE, and the same k steps run as single-step replays: every arena
+    leaf, the cursors, the active bitmap and each step's logits must agree
+    bit for bit. Also: one step replay against the eager step on the same
+    arena (restored again), bit for bit too, the arena's storage
+    unchanged, and each graph's launches per replay against
+    CALLS_PER_STEP."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serving.engine import InferenceEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_config(mid)
+    engine = InferenceEngine({mid: cfg}, seed=0, max_slots=8, chunk_depth=k, device="cuda")
+    arena = engine.arena(mid, seq)
+    leaves = lambda: tree_leaves(arena.cache) + [arena.cur, arena.active]
+    ptrs = [t.data_ptr() for t in leaves()]
+    before = ops.launch_counts()
+    engine.execute(mid, (seq,), 8, "decode")  # eager step, then its capture
+    eager = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    engine.execute_chunk(mid, (seq,), 8, k)
+    step_g = engine._graphs[("decode", mid, seq)]
+    chunk_g = engine._graphs[("decode_chunk", mid, seq, k)]
+    want = CALLS_PER_STEP[mid]
+    if eager != want or step_g.launches != want:
+        raise AssertionError(f"{mid}: launches per step eager {eager}, "
+                             f"captured {step_g.launches}, expected {want}")
+    if chunk_g.launches != {n: k * c for n, c in want.items()}:
+        raise AssertionError(f"{mid}: chunk launches {chunk_g.launches}")
+    captured_s = time.perf_counter() - t0
+
+    engine.alloc_slots(mid, seq, 4, start_pos=100)
+    engine.alloc_slots(mid, seq, 4, start_pos=seq - 300)
+    engine.free_slots(mid, seq, [0, 5])
+    live = list(arena.live)
+    rows_plan = [[1, 4], [], None, [3, 6, 7], [2], None, [1, 2, 3], [4, 7]][:k]
+    rng = np.random.default_rng(5)
+    payloads = [{r: int(rng.integers(0, cfg.vocab_size)) for r in (live if rows is None else rows)}
+                for rows in rows_plan]
+    snap = [t.clone() for t in leaves()]
+    ops.reset_launch_counts()
+    chunk = engine.decode_chunk(mid, (seq,), len(live), k, slots=live, payloads=payloads,
+                                step_rows=rows_plan).wait()
+    if ops.launch_counts() != chunk_g.launches:
+        raise AssertionError(f"{mid}: chunk replay counted {ops.launch_counts()}")
+    after_chunk = [t.clone() for t in leaves()]
+    for t, s in zip(leaves(), snap):
+        t.copy_(s)
+    ops.reset_launch_counts()
+    steps = [engine.dispatch(mid, (seq,), len(live), "decode", slots=live,
+                             payload=payloads[i], step_rows=rows_plan[i]).wait()
+             for i in range(k)]
+    if ops.launch_counts() != chunk_g.launches:
+        raise AssertionError(f"{mid}: {k} step replays counted {ops.launch_counts()}")
+    torch.cuda.synchronize()
+    same_leaves = all(torch.equal(a, b) for a, b in zip(after_chunk, leaves()))
+    same_logits = all(torch.equal(chunk[i], steps[i]) for i in range(k))
+    if not (same_leaves and same_logits):
+        bad = max(float((chunk[i] - steps[i]).abs().max()) for i in range(k))
+        raise AssertionError(f"{mid}: chunk vs {k} steps not bit-identical "
+                             f"(leaves {same_leaves}, logits max diff {bad:.3e})")
+    if not all(bool(torch.isfinite(chunk[i][live]).all()) for i in range(k)):
+        raise AssertionError(f"{mid}: non-finite chunk logits")
+
+    # One step replay against the eager step, on the same arena.
+    snap = [t.clone() for t in leaves()]
+    cur, active = arena.cur.clone(), arena.active.clone()
+    tok = torch.zeros(8, dtype=torch.int32, device="cuda")
+    tok[live] = torch.tensor([payloads[0].get(r, 0) for r in live], dtype=torch.int32,
+                             device="cuda")
+    replay = engine.dispatch(mid, (seq,), len(live), "decode", slots=live,
+                             payload={r: int(tok[r]) for r in live}).wait()
+    after_replay = [t.clone() for t in leaves()]
+    for t, s in zip(leaves(), snap):
+        t.copy_(s)
+    eager_logits, eager_cur = engine._decode_fn(mid, seq)(tok, cur, active)
+    arena.cur.copy_(eager_cur)  # as dispatch does after the step
+    torch.cuda.synchronize()
+    diff = float((replay[live] - eager_logits[live]).abs().max())
+    leaf_diff = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(after_replay, leaves()))
+    if not (torch.equal(replay[live], eager_logits[live])
+            and all(torch.equal(a, b) for a, b in zip(after_replay, leaves()))):
+        raise AssertionError(f"{mid}: replay vs eager step not bit-identical (max |diff| "
+                             f"logits {diff:.3e}, arena {leaf_diff:.3e})")
+    if [t.data_ptr() for t in leaves()] != ptrs:
+        raise AssertionError(f"{mid}: the arena's storage moved")
+    log(f"graphs {mid} seq {seq}: k={k} chunk vs {k} single replays bit-identical "
+        f"(rows {live}, steps {rows_plan}); replay vs eager step bit-identical "
+        f"(logits and every arena leaf); launches per step replay "
+        f"{step_g.launches}, per chunk {chunk_g.launches}; arena storage unchanged; "
+        f"decode_compiles {engine.stats['decode_compiles']}; eager step + captures "
+        f"{captured_s:.3f} s")
+    del engine, snap, after_chunk, after_replay, chunk, steps
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -842,6 +1029,9 @@ def main() -> int:
         phase_model(torch, MID, 2)
         phase_model(torch, RWKV, 2)
         phase_model(torch, RGEMMA, 3, sliding_window=64)
+    with Phase("graphs"):
+        for mid, seq in DECODE_SEQ.items():
+            phase_graphs(torch, mid, seq)
     with Phase("serve"):
         served = phase_serve(torch, {MID: 2048}, {"decode": 4, "prefill": 2}, frames=20,
                              deadline_factor=12.0)
@@ -852,6 +1042,10 @@ def main() -> int:
         log("served multitenant: " + json.dumps(served, sort_keys=True))
         for name, n in served["launches_serving"].items():
             report[name]["launches"] = n
+    with Phase("serve_chunked"):
+        served = phase_serve(torch, DECODE_SEQ, {"decode": 2, "prefill": 1}, frames=8,
+                             deadline_factor=6.0, chunk_depth=8)
+        log("served chunked: " + json.dumps(served, sort_keys=True))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")

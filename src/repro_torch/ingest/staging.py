@@ -88,6 +88,19 @@ class StagingRing:
         self.bytes_staged = 0
         self.consumer_waits = 0  # guard invocations before a refill
 
+    @property
+    def capacity(self) -> int:
+        """Stages that may be in flight behind ONE consumer: depth - 1.
+
+        A multi-step decode chunk stages one ring slot per step and
+        attaches the SAME consumer (the chunk's completion) to each, so a
+        k-step chunk needs ``k <= capacity``: were k to reach depth, the
+        k-th stage would wrap onto a slot whose guard is the chunk's own
+        not-yet-dispatched wait. The engine sizes decode rings to
+        ``max_chunk_depth + 1`` and checks this at dispatch.
+        """
+        return self.depth - 1
+
     def stage(self, fill_fn: Callable[[np.ndarray], None]) -> torch.Tensor:
         """Fill the next scratch buffer in place and upload it.
 

@@ -104,3 +104,12 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the launch counters, by kernel name. A CUDA-graph
+    replay runs no Python, so the serving engine adds each replay's
+    captured launches here: the counters then mean what they mean for
+    eager calls, one count per wrapper call that reached the device."""
+    for name, n in counts.items():
+        _KERNELS[name].launches += n

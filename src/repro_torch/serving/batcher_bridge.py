@@ -16,11 +16,14 @@ Control Module consumes. Profiling mirrors the engine's two regimes:
 prefill categories get a power-of-two bucket curve; decode categories
 get ONE flat entry measured with every arena row live (the worst case of
 the single step that serves all batch sizes) via
-``ProfileTable.record_flat``.
+``ProfileTable.record_flat``. With ``chunk_depth > 1`` each decode
+category also gets its k-step chunk family, which is the warm-up that
+captures every chunk's CUDA graph, and DeepRT wires the EDF worker's
+slack-driven ``ChunkPolicy`` off it.
 
 Not ported yet (ROADMAP.md): ``build_live_cluster`` and
-``build_live_transport`` (cluster, ingest and transport layers), and
-multi-step decode chunks (``chunk_depth > 1`` and ``ChunkJob`` raise).
+``build_live_transport`` (cluster, ingest and transport layers), with
+the slot-aware (leased) dispatch of decode jobs and chunks.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.core import (
     ProfileTable,
     WallClock,
 )
-from repro_torch.core.bucketing import arena_slots, bucket
+from repro_torch.core.bucketing import arena_slots, bucket, chunk_depths
 from repro_torch.core.request import ChunkJob
 from repro_torch.core.scheduler import NONRT_BATCH_CAP
 from repro_torch.serving.async_device import AsyncDevice
@@ -57,14 +60,17 @@ def profile_engine(
     per-batch curve would time the same step repeatedly; measure the
     worst case (all ``max_slots`` rows live) once and record it flat.
 
-    ``chunk_depth`` must be 1: multi-step decode chunks are not ported
-    yet (ROADMAP.md).
+    ``chunk_depth`` > 1 additionally profiles each decode category's
+    k-step chunks over the power-of-two depth ladder
+    (``bucketing.chunk_depths``), recording the per-depth flat WCET
+    family (``record_flat(..., k=k)``) that the EDF worker's slack rule
+    consumes. Measuring here is also the WARM-UP: every decode step and
+    chunk the worker can later choose is captured as a CUDA graph during
+    profiling, so serving stays at zero decode captures. Raw per-depth
+    measurements are clamped monotone non-decreasing in k before
+    recording (timer jitter on near-equal depths must not read as a
+    family inversion).
     """
-    if chunk_depth > 1:
-        raise NotImplementedError(
-            "multi-step decode chunks are not ported yet "
-            "(ROADMAP.md: decode_chunk and CUDA graphs)"
-        )
     cats = list(categories)
     # ProfileTable keys (and the bridge's kind_of map) are (model, shape)
     # — one kind per key by design. Profiling a shape as BOTH kinds would
@@ -98,6 +104,23 @@ def profile_engine(
             )
             wcet = probe.entries[(mid, tuple(shape_key))][engine.max_slots]
             table.record_flat(mid, shape_key, wcet, engine.max_slots)
+            if chunk_depth > 1:
+                prev = 0.0
+                for k in chunk_depths(min(chunk_depth, engine.max_chunk_depth)):
+                    probe_k = ProfileTable()
+                    profiler.profile(
+                        probe_k,
+                        mid,
+                        shape_key,
+                        [engine.max_slots],
+                        lambda b, _m=mid, _s=shape_key, _k=k: (
+                            engine.execute_chunk(_m, _s, b, _k)
+                        ),
+                        bucketed=False,
+                    )
+                    w = max(probe_k.entries[(mid, tuple(shape_key))][engine.max_slots], prev)
+                    table.record_flat(mid, shape_key, w, engine.max_slots, k=k)
+                    prev = w
         else:
             profiler.profile(
                 table,
@@ -140,8 +163,10 @@ def _wire_live_scheduler(
         return [f.payload for f in job.frames]
 
     def job_bytes(job) -> float:
+        steps = job.k if isinstance(job, ChunkJob) else 1
         return engine.job_bytes(
-            job.category.model_id, job.shape_key, job.batch_size, kind_of(job)
+            job.category.model_id, job.shape_key, job.batch_size,
+            kind_of(job), steps=steps,
         )
 
     def executed_rows(job) -> int:
@@ -156,10 +181,24 @@ def _wire_live_scheduler(
         mid, shape = job.category.model_id, job.shape_key
         kind = kind_of(job)
         if isinstance(job, ChunkJob):
-            raise NotImplementedError(
-                f"chunked decode dispatch for {mid}/{shape} is not ported "
-                f"yet (ROADMAP.md: decode_chunk and CUDA graphs)"
-            )
+            # A fused k-step decode chunk: ONE dispatch of depth job.k. The
+            # prefix path holds no leases, so it runs as a zero-payload
+            # prefix chunk; payload-carrying members need the slot-aware
+            # cluster path.
+            if kind != "decode":
+                raise RuntimeError(
+                    f"chunked dispatch for non-decode category {mid}/{shape}"
+                )
+            for j in job.jobs:
+                if job_payload(j) is not None:
+                    raise RuntimeError(
+                        f"decode chunk for {mid}/{shape} carries real "
+                        f"payload but no arena leases: decode streams with "
+                        f"payloads need the slot-aware cluster path, not "
+                        f"the prefix path"
+                    )
+            b = min(max(j.batch_size for j in job.jobs), engine.max_slots)
+            return engine.decode_chunk(mid, shape, b, job.k)
         payload = job_payload(job)
         if kind == "decode" and payload is not None:
             # Prefix-mode decode assigns rows POSITIONALLY per window and
@@ -214,7 +253,10 @@ def build_live_scheduler(
     ``device`` places the engine this function builds (``"cuda"`` by
     default; a caller-supplied ``engine`` keeps its own).
     ``profile_runs``: offline-profiler repetitions per batch size.
-    ``chunk_depth`` must be 1 (multi-step decode chunks are not ported).
+    ``chunk_depth`` > 1 enables multi-step decode chunking: the engine
+    is built to serve chunks that deep, every depth on the ladder is
+    profiled into the table's chunk family, and DeepRT auto-wires the
+    EDF worker's slack-driven depth policy off that family.
     """
     if engine is None:
         # Non-RT requests bypass admission (their batches are bounded by

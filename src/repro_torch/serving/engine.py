@@ -28,17 +28,28 @@ hand:
 - There is no KV donation to ask for: the arena is one resident buffer
   written in place by every step. ``donate_cache`` is accepted for
   interface parity and has no effect.
-- There are no jit program caches: each (kind, mid, seq[, batch]) gets a
-  plain step closure on first use. ``stats["decode_compiles"]`` counts
-  the first build of a (mid, seq) decode step and stays 0 after warm-up.
+- In place of XLA's compiled programs, each decode step (per (mid, seq))
+  and each k-step decode chunk (per (mid, seq, k)) is ONE CUDA graph on a
+  CUDA device. A key's first call runs eagerly as that call's real step
+  (it also loads the kernel libraries and cuBLAS's handles); the graph is
+  captured right after it, which runs no kernel and leaves the arena as
+  the eager step left it. Every later call copies its inputs (tokens,
+  cursors, active bitmap, a chunk's step masks) into the graph's static
+  buffers on the replaying stream, replays, and clones the logits out,
+  so no handle's outputs are overwritten by the next replay. The graph
+  reads and writes the arena at the captured addresses, so the arena and
+  the parameters are never rebound. ``stats["decode_compiles"]`` counts
+  captures (on the CPU, step builds) and stays 0 after warm-up; a failed
+  capture raises, with no eager path behind it. Prefill stays eager.
+- ``decode_chunk`` runs k decode steps as one dispatch: the single step
+  repeated in order (the reference's ``lax.scan``), bit-identical to k
+  single-step dispatches.
 - Parameters are made ON THE DEVICE, in each config's ``param_dtype``,
   from a ``torch.Generator`` on that device seeded from ``seed``;
   callers may pass ready parameters instead (``params=``).
 - Inputs are staged through ``StagingRing``s (pinned host buffers,
   non-blocking copies) guarded by the step that consumes them.
 
-Multi-step decode chunks (``decode_chunk``) and CUDA graphs are not
-ported yet (ROADMAP.md): ``chunk_depth > 1`` raises.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bucketing import bucket
 from repro_torch.ingest.staging import StagingRing, check_payload_dtype
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import model_for
 from repro_torch.models.kvcache import (
     cache_nbytes,
@@ -77,11 +89,12 @@ def resolve_device(device) -> torch.device:
 class StepHandle:
     """One in-flight dispatched step (outputs may still be computing)."""
 
-    outputs: Any  # prefill -> next tokens (b,); decode -> logits (m, V)
+    outputs: Any  # prefill -> next tokens (b,); decode -> logits (m, V); chunk (k, m, V)
     mid: str
     kind: str
     true_batch: int
     bucket_batch: int  # prefill: the pow2 bucket; decode: max_slots
+    steps: int = 1  # decode steps this dispatch executed (chunk depth)
     event: Optional[Any] = None  # torch.cuda.Event recorded after the step
 
     def wait(self) -> Any:
@@ -121,6 +134,49 @@ class SlotArena:
         return tuple(i for i in range(self.max_slots) if i not in free)
 
 
+class _DecodeGraph:
+    """One decode step or k-step chunk captured as a CUDA graph: the
+    static input buffers it reads, the static outputs it writes, and the
+    kernel launches one replay makes, by wrapper (what the wrappers
+    counted while it was captured)."""
+
+    def __init__(self, fn, args: Sequence[torch.Tensor], pool):
+        self.inputs = [a.clone() for a in args]
+        self.graph = torch.cuda.CUDAGraph()
+        before = kernel_ops.launch_counts()
+        try:
+            # thread_local: the capturing thread may make no call that is
+            # unsafe under capture (a hidden sync in the step raises here),
+            # while other threads (an AsyncDevice waiter synchronizing on
+            # an earlier step's event) are not made to fail by it, as
+            # "global" would. Captures happen during profiling anyway.
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.outputs = fn(*self.inputs)
+        finally:
+            after = kernel_ops.launch_counts()
+            self.launches = {n: after[n] - before[n] for n in after}
+            # Capture launched nothing: take back what the wrappers counted.
+            kernel_ops.add_launch_counts({n: -d for n, d in self.launches.items()})
+
+    def replay(self, args: Sequence[torch.Tensor]):
+        """Copy ``args`` into the static inputs and replay, all on the
+        current stream; returns the static outputs (valid until the next
+        replay)."""
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        self.graph.replay()
+        kernel_ops.add_launch_counts(self.launches)
+        return self.outputs
+
+
+# Cached device row masks (``InferenceEngine._row_mask``) kept at most.
+ROW_MASK_CACHE = 4096
+# Host scratch buffers per staging ring: one filled while the device
+# reads another (decode rings grow to a chunk's depth + 1).
+STAGING_DEPTH = 2
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -136,21 +192,18 @@ class InferenceEngine:
         """``donate_cache``: accepted, no effect (the arena is always
         updated in place). ``masked_decode=False`` recreates blind padding
         (every arena row does full attention work). ``max_slots``: decode
-        arena rows per (model, seq). ``chunk_depth`` must be 1 until
-        multi-step decode chunks are ported. ``device``: ``"cuda"`` (the
-        default) or ``"cpu"``. ``params``: ready parameter trees by model
-        id (e.g. from ``repro_torch.interop``); other models are drawn
-        from the seeded generator.
+        arena rows per (model, seq). ``chunk_depth``: the deepest decode
+        chunk this engine serves; a k-step chunk stages one decode ring
+        slot per step behind one consumer, so decode rings hold
+        ``max(STAGING_DEPTH, chunk_depth + 1)`` buffers. ``device``:
+        ``"cuda"`` (the default) or ``"cpu"``. ``params``: ready parameter
+        trees by model id (e.g. from ``repro_torch.interop``); other
+        models are drawn from the seeded generator.
         """
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if chunk_depth < 1:
             raise ValueError(f"chunk_depth must be >= 1, got {chunk_depth}")
-        if chunk_depth > 1:
-            raise NotImplementedError(
-                "multi-step decode chunks are not ported yet "
-                "(ROADMAP.md: decode_chunk and CUDA graphs)"
-            )
         self.device = resolve_device(device)
         self.configs = dict(configs)
         self.models = {mid: model_for(cfg) for mid, cfg in configs.items()}
@@ -168,8 +221,20 @@ class InferenceEngine:
             with torch.no_grad():
                 self.params[mid] = model.init(gen, device=self.device)
         self._steps: Dict[Tuple, Any] = {}
+        # Decode graphs by step key, all in one memory pool: replays run
+        # one at a time on one stream and outputs are cloned out, so no
+        # graph's memory is live while another replays.
+        self._graphs: Dict[Tuple, _DecodeGraph] = {}
+        self._graph_pool = (
+            torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        )
         self._arenas: Dict[Tuple[str, int], SlotArena] = {}
+        self.max_chunk_depth = chunk_depth
         self._rings: Dict[Tuple, StagingRing] = {}
+        # Device row masks by sorted row ids, and all-rows step masks by
+        # chunk depth: read-only, so a step re-sends resident tensors.
+        self._row_masks: Dict[Tuple[int, ...], torch.Tensor] = {}
+        self._full_masks: Dict[int, torch.Tensor] = {}
         # Prefix-mode decode inputs per (mid, seq, live-count): tiny
         # (max_slots,) device tensors, cached so the hot loop re-sends
         # resident tensors.
@@ -181,11 +246,12 @@ class InferenceEngine:
     def reset_stats(self) -> None:
         """Zero the padding/dispatch/compile counters. build_live_scheduler
         calls this after the offline profiling pass so ``stats`` reflects
-        only served traffic — ``decode_compiles`` then counts step builds
-        AFTER warm-up, which the slot arena holds at 0."""
+        only served traffic — ``decode_compiles`` then counts decode
+        captures AFTER warm-up, which the slot arena holds at 0."""
         self.stats.update(
             real_rows=0, bucket_rows=0, real_slots=0, total_slots=0,
             dispatches=0, decode_compiles=0, prefill_compiles=0,
+            chunk_steps=0,
         )
 
     def freeze(self) -> None:
@@ -223,25 +289,68 @@ class InferenceEngine:
             self._steps[key] = run
         return self._steps[key]
 
+    def _decode_body(self, mid: str, seq: int):
+        """The decode step's body for (mid, seq) on its arena:
+        ``run(tok, cur, active) -> (logits, new_cur)`` also advances the
+        active rows' cursors (clamped at the cache edge; a real system
+        would evict)."""
+        model, params = self.models[mid], self.params[mid]
+        cache = self.arena(mid, seq).cache
+
+        def run(tok, cur, active):
+            with torch.no_grad():
+                logits, _ = model.decode_step(params, cache, tok, cur, active=active)
+                return logits, torch.where(active, (cur + 1).clamp_(max=seq - 1), cur)
+
+        return run
+
     def _decode_fn(self, mid: str, seq: int):
-        """THE decode step for (mid, seq): every live batch <= max_slots
-        runs it. It also advances the live rows' cursors on the device
-        (clamped at the cache edge; a real system would evict)."""
+        """THE decode step for (mid, seq) on its arena: every live batch
+        <= max_slots runs it (``_decode_body``)."""
         key = ("decode", mid, seq)
         if key not in self._steps:
+            # One build per key, captured at its first call on a CUDA device.
             self.stats["decode_compiles"] += 1
-            model = self.models[mid]
+            self._steps[key] = self._decode_body(mid, seq)
+        return self._steps[key]
 
-            def run(params, cache, tok, cur, active):
-                with torch.no_grad():
-                    logits, cache = model.decode_step(
-                        params, cache, tok, cur, active=active
-                    )
-                    new_cur = torch.where(active, (cur + 1).clamp_(max=seq - 1), cur)
-                return logits, cache, new_cur
+    def _decode_chunk_fn(self, mid: str, seq: int, k: int):
+        """THE k-step decode chunk for (mid, seq, k): the single step's
+        body called k times in order, as the reference's ``lax.scan``.
+        ``run(toks (k, m), cur, active, masks (k, m)) -> (logits (k, m, V),
+        new_cur)``; step i runs with ``act = active & masks[i]``, so only
+        rows set in ``act`` advance their cursor. Being k calls of the
+        step makes the chunk bit-identical to k single steps (a contract,
+        tests/test_torch_decode_chunking.py)."""
+        key = ("decode_chunk", mid, seq, k)
+        if key not in self._steps:
+            # One build per key, captured at its first call on a CUDA device.
+            self.stats["decode_compiles"] += 1
+            step = self._decode_body(mid, seq)
+
+            def run(toks, cur, active, masks):
+                logits = []
+                for i in range(k):
+                    lg, cur = step(toks[i], cur, active & masks[i])
+                    logits.append(lg)
+                return torch.stack(logits), cur
 
             self._steps[key] = run
         return self._steps[key]
+
+    def _run_decode(self, key: Tuple, fn, args: Sequence[torch.Tensor]):
+        """Run one decode step or chunk; returns (logits, new_cur), the
+        logits the caller's own. On the CPU ``fn`` runs eagerly. On a CUDA
+        device a key's first call runs eagerly as that call's real step and
+        its graph is captured after it; later calls replay the graph."""
+        graph = self._graphs.get(key)
+        if graph is not None:
+            logits, new_cur = graph.replay(args)
+            return logits.clone(), new_cur
+        out = fn(*args)
+        if self.device.type == "cuda":
+            self._graphs[key] = _DecodeGraph(fn, args, self._graph_pool)
+        return out
 
     # ----- slot arena ------------------------------------------------------
     def arena(self, mid: str, seq: int) -> SlotArena:
@@ -259,10 +368,25 @@ class InferenceEngine:
         return self._arenas[key]
 
     def _row_mask(self, ids: Sequence[int]) -> torch.Tensor:
-        rows = torch.zeros((self.max_slots,), dtype=torch.bool)
-        if ids:
-            rows[list(ids)] = True
-        return rows.to(self.device)
+        """(max_slots,) bool device mask of the rows ``ids``, read-only.
+        Cached by row set, so a step between two replays re-sends a
+        resident tensor; a new set is staged from pinned memory with a
+        non-blocking copy (PyTorch's pinned allocator keeps the buffer
+        until the copy has read it)."""
+        key = tuple(sorted(set(int(i) for i in ids)))
+        mask = self._row_masks.get(key)
+        if mask is None:
+            rows = torch.zeros(
+                (self.max_slots,), dtype=torch.bool,
+                pin_memory=self.device.type == "cuda",
+            )
+            if key:
+                rows[list(key)] = True
+            mask = rows.to(self.device, non_blocking=True)
+            if len(self._row_masks) >= ROW_MASK_CACHE:
+                self._row_masks.clear()
+            self._row_masks[key] = mask
+        return mask
 
     def alloc_slots(
         self, mid: str, seq: int, n: int, start_pos: int = 0
@@ -321,9 +445,14 @@ class InferenceEngine:
         ring = self._rings.get(key)
         if ring is None:
             shape = (batch, seq) if kind == "prefill" else (batch,)
-            # Two buffers: the EDF worker keeps one job in flight, so one
-            # scratch is read by the device while the other is filled.
-            ring = StagingRing(shape, np.int32, depth=2, device=self.device)
+            # The EDF worker keeps one job in flight, so one scratch is read
+            # by the device while another is filled. A decode chunk stages
+            # one slot per step behind one consumer, plus the fill target;
+            # a ring's depth is fixed at creation, so it is sized here.
+            depth = STAGING_DEPTH
+            if kind == "decode":
+                depth = max(depth, self.max_chunk_depth + 1)
+            ring = StagingRing(shape, np.int32, depth=depth, device=self.device)
             self._rings[key] = ring
         return ring
 
@@ -476,32 +605,9 @@ class InferenceEngine:
             ring, payload, prefix_rows=batch_size if slots is None else None
         )
         if slots is None:
-            if len(arena.free) != arena.max_slots:
-                raise ValueError(
-                    f"arena {mid}/seq={seq} has allocator-live rows "
-                    f"{sorted(arena.live)}; prefix-mode dispatch would "
-                    f"overwrite their KV at synthetic cursors — pass "
-                    f"slots= (all live rows) instead"
-                )
-            cur, active = self._prefix_inputs(mid, seq, batch_size)
-            if not arena.presented:
-                # Synthetic cursors at seq-1: fill every ring as a served
-                # row's is there, so the step (and the WCET profiled from
-                # it) does a full window's attention, as a full cache's
-                # validity by cursor already makes it do.
-                ring_cache_present_window(arena.cache, seq - 1)
-                arena.presented = True
+            cur, active = self._prefix_mode_inputs(mid, seq, batch_size, "dispatch")
         else:
-            ids = [int(s) for s in slots]
-            if len(ids) != batch_size or len(set(ids)) != len(ids):
-                raise ValueError(
-                    f"need {batch_size} distinct slot ids, got {ids}"
-                )
-            if set(ids) != set(arena.live):
-                raise ValueError(
-                    f"slot dispatch must step ALL live rows "
-                    f"{sorted(arena.live)}, got {sorted(ids)}"
-                )
+            ids = self._check_slots(arena, slots, batch_size)
             cur, active = arena.cur, arena.active
             if step_rows is not None:
                 step = [int(s) for s in step_rows]
@@ -516,12 +622,171 @@ class InferenceEngine:
         self.stats["bucket_rows"] += m
         self.stats["real_slots"] += batch_size * seq
         self.stats["total_slots"] += k * seq
-        logits, _, new_cur = fn(self.params[mid], arena.cache, tok, cur, active)
+        logits, new_cur = self._run_decode(("decode", mid, seq), fn, (tok, cur, active))
         if slots is not None:
             arena.cur.copy_(new_cur)  # advanced on the device, in place
         handle = StepHandle(logits, mid, kind, batch_size, m, event=self._record())
         ring.attach_consumer(handle.wait)
         return handle
+
+    def _prefix_mode_inputs(
+        self, mid: str, seq: int, batch_size: int, op: str
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cursors, active) of a prefix-mode step, which needs an arena
+        with no allocator-live row; presents its rings first."""
+        arena = self.arena(mid, seq)
+        if len(arena.free) != arena.max_slots:
+            raise ValueError(
+                f"arena {mid}/seq={seq} has allocator-live rows "
+                f"{sorted(arena.live)}; prefix-mode {op} would "
+                f"overwrite their KV at synthetic cursors — pass "
+                f"slots= (all live rows) instead"
+            )
+        if not arena.presented:
+            # Synthetic cursors at seq-1: fill every ring as a served
+            # row's is there, so the step (and the WCET profiled from
+            # it) does a full window's attention, as a full cache's
+            # validity by cursor already makes it do.
+            ring_cache_present_window(arena.cache, seq - 1)
+            arena.presented = True
+        return self._prefix_inputs(mid, seq, batch_size)
+
+    @staticmethod
+    def _check_slots(arena: SlotArena, slots: Sequence[int], batch_size: int) -> List[int]:
+        """The slot ids of a slot-mode step: ``batch_size`` distinct ids,
+        exactly the arena's live rows."""
+        ids = [int(s) for s in slots]
+        if len(ids) != batch_size or len(set(ids)) != len(ids):
+            raise ValueError(
+                f"need {batch_size} distinct slot ids, got {ids}"
+            )
+        if set(ids) != set(arena.live):
+            raise ValueError(
+                f"slot dispatch must step ALL live rows "
+                f"{sorted(arena.live)}, got {sorted(ids)}"
+            )
+        return ids
+
+    def decode_chunk(
+        self, mid: str, shape_key: Tuple[int, ...], batch_size: int, k: int,
+        slots: Optional[Sequence[int]] = None,
+        payloads: Optional[Sequence] = None,
+        step_rows: Optional[Sequence[Optional[Sequence[int]]]] = None,
+    ) -> StepHandle:
+        """Enqueue ONE k-step decode chunk without waiting for the device.
+
+        The chunked twin of a decode ``dispatch``: the same slot-arena
+        semantics (``slots`` must be ALL live rows; prefix mode when
+        ``slots=None``), executed k steps deep by ``_decode_chunk_fn``,
+        one CUDA-graph replay on the card: bit-identical to k sequential
+        single-step dispatches, with the k-1 intermediate host returns
+        removed. The handle's outputs are the (k, max_slots, V) logits.
+
+        ``payloads``: length-k sequence of per-step decode payloads (each
+        in any form single-step ``dispatch`` accepts); ``None`` = all
+        steps zero-staged (the profiler's input). Each step's tokens go
+        through the SAME decode staging ring, one slot per step, all
+        guarded by this chunk's completion, so ``k`` must not exceed
+        ``ring.capacity`` (sized from ``chunk_depth`` at construction; a
+        deeper chunk is rejected rather than left to deadlock on its own
+        not-yet-dispatched consumer).
+
+        ``step_rows``: length-k sequence of per-step frame-bearing row
+        subsets (``None`` entry = every live row steps). Idle leased rows
+        at step i run masked: attention skipped, cursor frozen, as with
+        single-step ``step_rows``.
+        """
+        self._check_not_frozen("decode_chunk")
+        seq = shape_key[0]
+        m = self.max_slots
+        if k < 1:
+            raise ValueError(f"chunk depth must be >= 1, got {k}")
+        if batch_size > m:
+            raise ValueError(
+                f"decode batch {batch_size} > max_slots {m}: size the "
+                f"arena via bucketing.arena_slots at engine build"
+            )
+        if payloads is not None and len(payloads) != k:
+            raise ValueError(
+                f"chunk of depth {k} needs {k} per-step payloads, "
+                f"got {len(payloads)}"
+            )
+        if step_rows is not None and len(step_rows) != k:
+            raise ValueError(
+                f"chunk of depth {k} needs {k} per-step row sets, "
+                f"got {len(step_rows)}"
+            )
+        arena = self.arena(mid, seq)
+        ring = self.staging_ring("decode", mid, seq, m)
+        if k > ring.capacity:
+            raise ValueError(
+                f"chunk depth {k} exceeds the decode ring's in-flight "
+                f"capacity {ring.capacity}: build the engine with "
+                f"chunk_depth >= {k}"
+            )
+        if slots is None:
+            cur, active = self._prefix_mode_inputs(mid, seq, batch_size, "decode_chunk")
+        else:
+            ids = self._check_slots(arena, slots, batch_size)
+            cur, active = arena.cur, arena.active
+            for i, rows_i in enumerate(step_rows or ()):
+                if rows_i is None:
+                    continue
+                extra = sorted(set(int(s) for s in rows_i) - set(ids))
+                if extra:
+                    raise ValueError(
+                        f"step {i} rows {extra} are not live rows {sorted(ids)}"
+                    )
+        # Per-step token staging: one ring slot per step, every slot
+        # guarded by THIS chunk's completion (the guard resolves the handle
+        # after dispatch; a later refill of any of these scratches waits
+        # until this chunk finished reading it).
+        pending: Dict[str, Optional[StepHandle]] = {"handle": None}
+
+        def _chunk_guard() -> None:
+            h = pending["handle"]
+            if h is not None:
+                h.wait()
+
+        staged = []
+        prefix = batch_size if slots is None else None
+        for i in range(k):
+            payload_i = payloads[i] if payloads is not None else None
+            staged.append(self._stage_decode_tokens(ring, payload_i, prefix_rows=prefix))
+            ring.attach_consumer(_chunk_guard)
+        toks = torch.stack(staged)
+        masks = self._step_masks(k, step_rows)
+        fn = self._decode_chunk_fn(mid, seq, k)
+        kk = batch_size if self.masked_decode else m
+        self.stats["dispatches"] += 1
+        self.stats["chunk_steps"] += k
+        self.stats["real_rows"] += batch_size * k
+        self.stats["bucket_rows"] += m * k
+        self.stats["real_slots"] += batch_size * seq * k
+        self.stats["total_slots"] += kk * seq * k
+        logits, new_cur = self._run_decode(
+            ("decode_chunk", mid, seq, k), fn, (toks, cur, active, masks)
+        )
+        if slots is not None:
+            arena.cur.copy_(new_cur)
+        handle = StepHandle(logits, mid, "decode", batch_size, m, steps=k,
+                            event=self._record())
+        pending["handle"] = handle
+        return handle
+
+    def _step_masks(
+        self, k: int, step_rows: Optional[Sequence[Optional[Sequence[int]]]]
+    ) -> torch.Tensor:
+        """The (k, max_slots) per-step frame mask a chunk consumes, made on
+        the device from resident tensors: the all-rows mask per depth, or
+        each step's cached row mask."""
+        m = self.max_slots
+        if step_rows is None or all(r is None for r in step_rows):
+            if k not in self._full_masks:
+                self._full_masks[k] = torch.ones((k, m), dtype=torch.bool, device=self.device)
+            return self._full_masks[k]
+        every = self._row_mask(range(m))
+        return torch.stack([every if r is None else self._row_mask(r) for r in step_rows])
 
     def execute(
         self, mid: str, shape_key: Tuple[int, ...], batch_size: int,
@@ -533,6 +798,19 @@ class InferenceEngine:
         t0 = time.perf_counter()
         self.dispatch(
             mid, shape_key, batch_size, kind, slots=slots, payload=payload
+        ).wait()
+        return time.perf_counter() - t0
+
+    def execute_chunk(
+        self, mid: str, shape_key: Tuple[int, ...], batch_size: int, k: int,
+        slots: Optional[Sequence[int]] = None,
+        payloads: Optional[Sequence] = None,
+    ) -> float:
+        """Run one k-step decode chunk synchronously; returns wall
+        seconds. The offline profiler's per-depth measurement path."""
+        t0 = time.perf_counter()
+        self.decode_chunk(
+            mid, shape_key, batch_size, k, slots=slots, payloads=payloads
         ).wait()
         return time.perf_counter() - t0
 
@@ -553,7 +831,7 @@ class InferenceEngine:
 
     def job_bytes(
         self, mid: str, shape_key: Tuple[int, ...], batch_size: int,
-        kind: str = "prefill",
+        kind: str = "prefill", steps: int = 1,
     ) -> float:
         """Bytes a running job pins on the device (staging + the arena it
         executes against; the device runs one job at a time, so the
@@ -561,7 +839,12 @@ class InferenceEngine:
         seq = shape_key[0]
         if kind == "prefill":
             return float(4 * bucket(batch_size) * seq)  # int32 tokens
-        staging = 3 * 4 * self.max_slots  # int32 tokens, cursors, active
+        # steps > 1: a chunk stages one token vector per step (plus the
+        # (steps, max_slots) bool step-mask plane) on top of the shared
+        # cursors/active pair; steps == 1 is the classic tok+cur+active.
+        staging = (2 + steps) * 4 * self.max_slots
+        if steps > 1:
+            staging += steps * self.max_slots
         return float(staging + self.arena_nbytes(mid, seq))
 
     @property

@@ -19,6 +19,7 @@ from repro_torch.kernels import wkv6 as wk
 from repro_torch.kernels.ref import decode_attention_split_plain, wkv6_chunked_plain
 from repro_torch.kernels.rglru import rglru_scan_plain
 from repro_torch.kernels.wkv6 import wkv6_plain
+from repro_torch.models.layers import tree_leaves
 from repro_torch.serving.engine import InferenceEngine
 
 MID = "granite-3-2b"
@@ -386,3 +387,167 @@ def test_recurrent_engine_kernel_path_matches_dense_on_card(cuda, arch, kw):
     else:
         assert used["wkv6"] == 0 and used["rglru_scan"] > 0 and used["flash_attention"] > 0
         assert used["decode_attention"] > 0
+
+
+# ---------------------------------------------------------------------------
+# decode steps and chunks as CUDA graphs
+# ---------------------------------------------------------------------------
+# One model per block kind: granite (attn), recurrentgemma at 5 layers
+# (rglru and an swa ring, with a tail after it), rwkv6 (rwkv).
+GRAPH_ARCHS = {"granite-3-2b": {}, "recurrentgemma-9b": {"n_layers": 5}, "rwkv6-1.6b": {}}
+GSEQ = 24  # recurrentgemma's 16-slot ring wraps for rows near the end
+
+
+def _graph_engine(cuda, arch, dtype, params=None, max_slots=8, chunk_depth=8):
+    cfg = tiny(arch, **GRAPH_ARCHS[arch])
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    return InferenceEngine({arch: cfg}, max_slots=max_slots, chunk_depth=chunk_depth,
+                           device=cuda, params=None if params is None else {arch: params})
+
+
+def _leaves_of(arena):
+    return tree_leaves(arena.cache) + [arena.cur, arena.active]
+
+
+def _warm(eng, arch, depths=(1, 2, 4, 8)):
+    """Capture the step and every chunk depth in prefix mode (the
+    profiler's warm-up), before any row is leased."""
+    eng.execute(arch, (GSEQ,), eng.max_slots, "decode")
+    for k in depths:
+        eng.execute_chunk(arch, (GSEQ,), eng.max_slots, k)
+    assert eng.stats["decode_compiles"] == 1 + len(depths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_replay_matches_eager_decode_step(cuda, arch, dtype):
+    """A step's graph replay against the eager step on the same inputs and
+    the same arena (restored in place between the two), every block kind:
+    the same kernels in the same order, so bit for bit."""
+    eng = _graph_engine(cuda, arch, dtype)
+    slots = eng.alloc_slots(arch, GSEQ, 5, start_pos=9)
+    arena = eng.arena(arch, GSEQ)
+    payload = {s: 3 + 7 * s for s in slots}
+    eng.dispatch(arch, (GSEQ,), 5, "decode", slots=slots, payload=payload).wait()  # captures
+    snap = [t.clone() for t in _leaves_of(arena)]
+    cur, active = arena.cur.clone(), arena.active.clone()
+    got = eng.dispatch(arch, (GSEQ,), 5, "decode", slots=slots, payload=payload).wait()
+    after = [t.clone() for t in _leaves_of(arena)]
+    for t, s in zip(_leaves_of(arena), snap):
+        t.copy_(s)
+    tok = torch.zeros(8, dtype=torch.int32, device=cuda)
+    tok[list(slots)] = torch.tensor([payload[s] for s in slots], dtype=torch.int32,
+                                    device=cuda)
+    want, want_cur = eng._decode_fn(arch, GSEQ)(tok, cur, active)
+    arena.cur.copy_(want_cur)
+    torch.cuda.synchronize()
+    live = list(slots)
+    assert torch.equal(got[live], want[live])
+    for a, t in zip(after, _leaves_of(arena)):
+        assert torch.equal(a, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False], ids=["replays", "first-calls"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_chunk_graph_bit_identical_to_step_graphs(cuda, arch, dtype, k, warm):
+    """A k-step chunk on engine A against k single steps on twin engine B,
+    with scattered leased rows, mixed cursors and an empty step: every
+    arena leaf, cursors, active bitmap and each step's logits bit for
+    bit; the arena's storage never moves. Warm: both sides are replays.
+    Cold: the chunk is its key's first (eager) call, and so is B's first
+    step, the rest replays."""
+    a = _graph_engine(cuda, arch, dtype)
+    b = _graph_engine(cuda, arch, dtype, params=a.params[arch])
+    for e in (a, b):
+        if warm:
+            _warm(e, arch)
+        e.alloc_slots(arch, GSEQ, 4, start_pos=2)
+        e.alloc_slots(arch, GSEQ, 4, start_pos=GSEQ - 4)
+        e.free_slots(arch, GSEQ, [0, 5])
+    live = list(a.arena(arch, GSEQ).live)
+    rows_plan = ([[1, 4], [], None, [3, 6, 7], [2], None, [1, 2, 3], [4, 7]])[:k]
+    rng = np.random.default_rng(k)
+    payloads = [{r: int(rng.integers(0, 256)) for r in (live if rows is None else rows)}
+                for rows in rows_plan]
+    ptrs = [t.data_ptr() for t in _leaves_of(a.arena(arch, GSEQ))]
+    before = ops.launch_counts()
+    chunk = a.decode_chunk(arch, (GSEQ,), len(live), k, slots=live, payloads=payloads,
+                           step_rows=rows_plan).wait()
+    steps = [b.dispatch(arch, (GSEQ,), len(live), "decode", slots=live, payload=payloads[i],
+                        step_rows=rows_plan[i]).wait() for i in range(k)]
+    after = ops.launch_counts()
+    for la, lb in zip(_leaves_of(a.arena(arch, GSEQ)), _leaves_of(b.arena(arch, GSEQ))):
+        assert torch.equal(la, lb)
+    for i in range(k):
+        assert torch.equal(chunk[i], steps[i])
+    assert [t.data_ptr() for t in _leaves_of(a.arena(arch, GSEQ))] == ptrs
+    # The chunk counts k steps' launches, as k steps do.
+    step_graph = b._graphs[("decode", arch, GSEQ)]
+    assert a._graphs[("decode_chunk", arch, GSEQ, k)].launches == {
+        n: k * c for n, c in step_graph.launches.items()}
+    assert {n: after[n] - before[n] for n in after} == {
+        n: 2 * k * c for n, c in step_graph.launches.items()}
+    assert a.stats["decode_compiles"] == b.stats["decode_compiles"] == (5 if warm else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_graphs_keep_arena_storage_count_launches_and_never_recapture(cuda, arch):
+    """The arena's storage is stable across steps, allocation, frees and
+    ring presentation; a replay adds the launches its capture counted (the
+    eager step's own counts); no batch of a sweep captures again."""
+    eng = _graph_engine(cuda, arch, torch.bfloat16)
+    arena = eng.arena(arch, GSEQ)
+    ptrs = [t.data_ptr() for t in _leaves_of(arena)]
+    before = ops.launch_counts()
+    eng.execute(arch, (GSEQ,), 8, "decode")  # eager step, then the capture
+    eager = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    assert sum(eager.values()) > 0
+    assert eng._graphs[("decode", arch, GSEQ)].launches == eager
+    eng.reset_stats()
+    for b in (1, 2, 3, 5, 8, 6, 4, 2, 1):
+        before = ops.launch_counts()
+        logits = eng.dispatch(arch, (GSEQ,), b, "decode").wait()
+        assert {n: c - before[n] for n, c in ops.launch_counts().items()} == eager
+        assert bool(torch.isfinite(logits[:b]).all())
+    assert eng.stats["decode_compiles"] == 0
+    slots = eng.alloc_slots(arch, GSEQ, 3, start_pos=4)
+    for _ in range(3):
+        eng.dispatch(arch, (GSEQ,), 3, "decode", slots=slots, payload={s: 1 for s in slots})
+    eng.free_slots(arch, GSEQ, [slots[1]])
+    eng.dispatch(arch, (GSEQ,), 2, "decode", slots=[slots[0], slots[2]]).wait()
+    eng.free_slots(arch, GSEQ, [slots[0], slots[2]])
+    eng.dispatch(arch, (GSEQ,), 4, "decode").wait()  # presents the rings again
+    assert eng.stats["decode_compiles"] == 0
+    assert [t.data_ptr() for t in _leaves_of(arena)] == ptrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_consecutive_replays_hold_distinct_logits(cuda, arch):
+    """Handles of replays enqueued back to back, waited on only at the end,
+    each hold their own step's logits (the graph's output buffer is
+    overwritten by every replay), as a twin engine waiting after every
+    step gives them; the same for chunks."""
+    a = _graph_engine(cuda, arch, torch.float32)
+    b = _graph_engine(cuda, arch, torch.float32, params=a.params[arch])
+    for e in (a, b):
+        _warm(e, arch, depths=(2,))
+    slots = a.alloc_slots(arch, GSEQ, 4)
+    assert b.alloc_slots(arch, GSEQ, 4) == slots
+    toks = [{s: 11 * i + s for s in slots} for i in range(4)]
+    handles = [a.dispatch(arch, (GSEQ,), 4, "decode", slots=slots, payload=t) for t in toks]
+    handles.append(a.decode_chunk(arch, (GSEQ,), 4, 2, slots=slots, payloads=toks[:2]))
+    handles.append(a.decode_chunk(arch, (GSEQ,), 4, 2, slots=slots, payloads=toks[2:]))
+    got = [h.wait() for h in handles]
+    want = [b.dispatch(arch, (GSEQ,), 4, "decode", slots=slots, payload=t).wait() for t in toks]
+    want += [b.decode_chunk(arch, (GSEQ,), 4, 2, slots=slots, payloads=p).wait()
+             for p in (toks[:2], toks[2:])]
+    assert len({g.data_ptr() for g in got}) == len(got)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[0], got[1])

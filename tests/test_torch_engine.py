@@ -184,8 +184,11 @@ def test_staging_ring_consumer_guard():
 
 
 def test_engine_refuses_unported_options_and_missing_cuda():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine({MID: tiny(MID)}, chunk_depth=2, device="cpu")
+    eng = InferenceEngine({MID: tiny(MID)}, chunk_depth=2, device="cpu")
+    assert eng.max_chunk_depth == 2
+    assert eng.staging_ring("decode", MID, SEQ, eng.max_slots).capacity == 2
+    with pytest.raises(ValueError, match="chunk_depth"):
+        InferenceEngine({MID: tiny(MID)}, chunk_depth=0, device="cpu")
     if not torch.cuda.is_available():
         # No silent CPU fallback: asking for the card without one raises.
         with pytest.raises(RuntimeError, match="cuda"):
