@@ -37,13 +37,14 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              window, so the ring cache wraps).
 5. graphs  — per model (granite-3-2b, rwkv6-1.6b, recurrentgemma-9b at
              full width, bf16, 8 arena rows, decode seq 2048 / 2048 /
-             4096), the decode step and an 8-step chunk as CUDA graphs:
-             the chunk against 8 single-step replays on the same leased,
-             scattered rows (the arena snapshot and restored in place),
-             bit for bit; one replay against the eager step, bit for bit
-             (live logits and every arena leaf); the arena's storage
-             unchanged; launches per replay against the kernel calls of
-             one step.
+             4096), the decode step as a CUDA graph and an 8-step chunk
+             as 8 replays of it: one capture for the model's (mid, seq)
+             and none per depth; the chunk against 8 single-step replays
+             on the same leased, scattered rows (the arena snapshot and
+             restored in place), bit for bit; one replay against the
+             eager step, bit for bit (live logits and every arena leaf);
+             the arena's storage unchanged; launches per replay against
+             the kernel calls of one step.
 6. serve   — full granite-3-2b (40 layers, bf16, random weights from a
              seed) served by DeepRT through build_live_scheduler, one
              prefill and one decode category; checks admission,
@@ -57,10 +58,39 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              launch counts are this run's, replays included).
 8. serve_chunked — serve_multitenant's models and streams from an engine
              built with chunk_depth=8 (chunk WCETs profiled for k = 1,
-             2, 4, 8, every chunk captured in that warm-up), plus per
-             model a burst of 8 decode jobs at one instant with a 30 s
-             deadline: every model serves chunks of 2 or more steps,
-             with no miss and zero decode captures while serving.
+             2, 4, 8: k replays of the step graph, captured once in that
+             warm-up), plus per model a burst of 8 decode jobs at one
+             instant with a 30 s deadline: every model serves chunks of
+             2 or more steps, with no miss and zero decode captures
+             while serving.
+9. cluster — full granite-3-2b on three slices of the card
+             (build_live_cluster: an engine, a 4-row 2048-seq arena, a
+             profiled table and an AsyncDevice each; Phase-1 bounds 1/3),
+             decode streams with real tokens on leased rows and prefill
+             streams through the ingest gateway; the busiest slice is
+             killed mid-decode with fail_slice. Checks that every
+             displaced request sits in exactly one ledger, conservation,
+             zero decode captures on survivors, a frozen dead engine;
+             logs misses, p99 and each slice's WCETs.
+10. faults — three slices with the watchdog armed: slice0 wedges on its
+             third served submit, slice1 is throttled on three spaced
+             submits, behind FaultyDevice. Checks that slice0 is
+             quarantined as hung with no operator call, slice1 degrades
+             but lives, conservation, zero survivor captures; logs the
+             time from the stall to the quarantine.
+11. gateway — the ingest gateway over two slices built with
+             chunk_depth=8: camera and bursty decode streams (seeded
+             tokens), a prefill stream, a stream closed early, and a
+             reconnecting client's 8-frame backlog on a leased row that
+             the EDF worker fuses into chunks. Checks leases released,
+             shed frames counted three ways, a chunk of 2 or more steps,
+             and each decode stream's leased-row logits bit-equal to a
+             twin engine of the same max_slots replaying that stream
+             alone.
+
+Each serving phase sets the kernel launch counts to 0 before it serves
+and reads them after, and fails unless every kernel of its path
+launched.
 
 Before the last line it prints the nvidia-smi line and one JSON object
 with a row per kernel (`previous_ms`: the previous design's time, null
@@ -901,13 +931,15 @@ def phase_graphs(torch, mid, seq, k=8):
     eager = {n: c - before[n] for n, c in ops.launch_counts().items()}
     engine.execute_chunk(mid, (seq,), 8, k)
     step_g = engine._graphs[("decode", mid, seq)]
-    chunk_g = engine._graphs[("decode_chunk", mid, seq, k)]
     want = CALLS_PER_STEP[mid]
     if eager != want or step_g.launches != want:
         raise AssertionError(f"{mid}: launches per step eager {eager}, "
                              f"captured {step_g.launches}, expected {want}")
-    if chunk_g.launches != {n: k * c for n, c in want.items()}:
-        raise AssertionError(f"{mid}: chunk launches {chunk_g.launches}")
+    # A chunk replays the step graph k times: one capture per (mid, seq).
+    if list(engine._graphs) != [("decode", mid, seq)] or engine.stats["decode_compiles"] != 1:
+        raise AssertionError(f"{mid}: graphs {list(engine._graphs)}, captures "
+                             f"{engine.stats['decode_compiles']}; want the step graph alone")
+    chunk_launches = {n: k * c for n, c in want.items()}
     captured_s = time.perf_counter() - t0
 
     engine.alloc_slots(mid, seq, 4, start_pos=100)
@@ -922,7 +954,7 @@ def phase_graphs(torch, mid, seq, k=8):
     ops.reset_launch_counts()
     chunk = engine.decode_chunk(mid, (seq,), len(live), k, slots=live, payloads=payloads,
                                 step_rows=rows_plan).wait()
-    if ops.launch_counts() != chunk_g.launches:
+    if ops.launch_counts() != chunk_launches:
         raise AssertionError(f"{mid}: chunk replay counted {ops.launch_counts()}")
     after_chunk = [t.clone() for t in leaves()]
     for t, s in zip(leaves(), snap):
@@ -931,7 +963,7 @@ def phase_graphs(torch, mid, seq, k=8):
     steps = [engine.dispatch(mid, (seq,), len(live), "decode", slots=live,
                              payload=payloads[i], step_rows=rows_plan[i]).wait()
              for i in range(k)]
-    if ops.launch_counts() != chunk_g.launches:
+    if ops.launch_counts() != chunk_launches:
         raise AssertionError(f"{mid}: {k} step replays counted {ops.launch_counts()}")
     torch.cuda.synchronize()
     same_leaves = all(torch.equal(a, b) for a, b in zip(after_chunk, leaves()))
@@ -969,12 +1001,480 @@ def phase_graphs(torch, mid, seq, k=8):
     log(f"graphs {mid} seq {seq}: k={k} chunk vs {k} single replays bit-identical "
         f"(rows {live}, steps {rows_plan}); replay vs eager step bit-identical "
         f"(logits and every arena leaf); launches per step replay "
-        f"{step_g.launches}, per chunk {chunk_g.launches}; arena storage unchanged; "
+        f"{step_g.launches}, per chunk {chunk_launches}; arena storage unchanged; "
         f"decode_compiles {engine.stats['decode_compiles']}; eager step + captures "
         f"{captured_s:.3f} s")
     del engine, snap, after_chunk, after_replay, chunk, steps
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# live clusters: cluster, faults, gateway
+# ---------------------------------------------------------------------------
+# Each slice's streams get a deadline of CLUSTER_DEADLINE_FACTOR x (decode
+# WCET + batch-8 prefill WCET), the largest over the slices, and a period
+# of half that: one frame a stream per DisBatcher window.
+CLUSTER_DEADLINE_FACTOR = 8.0
+# The watchdog's deadline floor for full-width granite: 12x a decode step
+# (about 8 ms on the card, up to 18 ms host-inclusive) and above a
+# batch-1 prefill's WCET times the slack, so host noise never reads as
+# lateness; a wedge is declared hung after hang_slack / slack = 3 floors.
+WATCHDOG_MIN_DEADLINE = 0.1
+
+
+def granite_cluster(torch, names, **kw):
+    """Full-width granite-3-2b on len(names) slices of one card: each its
+    own engine (seeded weights, a 2048-seq decode arena), profiled alone,
+    with a Phase-1 bound of 1 / len(names) so the slices' admissions
+    together claim the card once. Returns (cluster, slices, cats,
+    deadline)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.batcher_bridge import build_live_cluster
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dec = (DECODE_SEQ[MID],)
+    cats = [(MID, (PREFILL_SEQ,), "prefill"), (MID, dec, "decode")]
+    t0 = time.perf_counter()
+    cluster, slices = build_live_cluster(
+        {MID: get_config(MID)}, cats, slice_names=names, batch_sizes=(1, 2, 4, 8),
+        utilization_bounds={n: 1.0 / len(names) for n in names}, device="cuda", **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, sl in slices.items():
+        t, e = sl.spec.table, sl.engine
+        w_dec = t.wcet(MID, dec, e.max_slots)
+        w_pre = {b: t.wcet(MID, (PREFILL_SEQ,), b) for b in (1, 2, 4, 8)}
+        worst = max(worst, w_dec + w_pre[8])
+        chunks = ""
+        if t.has_chunks(MID, dec):
+            chunks = "; chunks " + ", ".join(
+                f"k={k}: {t.chunk_wcet(MID, dec, k) * 1e3:.3f} ms"
+                for k in t.chunk_depths_profiled(MID, dec))
+        log(f"slice {name}: {e.max_slots} arena rows ({e.arena_nbytes(MID, dec[0])} bytes), "
+            f"decode graphs {len(e._graphs)}; profiled WCET decode {w_dec * 1e3:.3f} ms, "
+            "prefill " + ", ".join(f"b{b}: {w * 1e3:.3f} ms" for b, w in w_pre.items())
+            + chunks)
+    deadline = CLUSTER_DEADLINE_FACTOR * worst
+    log(f"{len(names)} slices built and profiled in {time.perf_counter() - t0:.3f} s; "
+        f"device memory {torch.cuda.memory_allocated()} bytes (peak "
+        f"{torch.cuda.max_memory_allocated()}); stream deadline {deadline * 1e3:.3f} ms")
+    return cluster, slices, cats, deadline
+
+
+def register_streams(gateway, cfg, deadline, n_decode, n_prefill, seed, frames):
+    """Camera decode streams (one scalar token a frame) and prefill
+    streams (512 tokens a frame) whose bytes come from seeded sources."""
+    from repro_torch.core import Category
+    from repro_torch.ingest import CameraSource
+
+    sessions = []
+    for i in range(n_decode + n_prefill):
+        decode = i < n_decode
+        src = CameraSource(period=deadline / 2, n_frames=frames,
+                           payload_shape=() if decode else (PREFILL_SEQ,),
+                           vocab=cfg.vocab_size, seed=seed + i)
+        shape = (DECODE_SEQ[MID],) if decode else (PREFILL_SEQ,)
+        sessions.append(gateway.register(src, Category(MID, shape), relative_deadline=deadline))
+    if any(s.state != "active" for s in sessions):
+        raise AssertionError(f"sessions not all admitted: {[s.state for s in sessions]}")
+    return sessions
+
+
+def check_conserved(cluster, label):
+    agg = cluster.aggregate_metrics()
+    if agg["completed_frames"] + agg["dropped_frames"] + agg["lost_frames"] != agg[
+            "ingested_frames"]:
+        raise AssertionError(f"{label}: conservation broken: {agg}")
+    if cluster.parked:
+        raise AssertionError(f"{label}: parked tails left unresolved: {cluster.parked}")
+    return agg
+
+
+def check_accounted(cluster, victims, label):
+    """Each displaced request in exactly one ledger; returns the ledgers."""
+    ledgers = {}
+    for rid in victims:
+        kinds = []
+        if rid in cluster.finished_with_slice:
+            kinds.append("finished_with_slice")
+        if rid in cluster.failover_map:
+            if rid in cluster.parked_expired:
+                kinds.append("parked_expired")
+            elif rid in cluster.parked_admitted:
+                kinds.append("parked_admitted")
+            elif cluster.failover_map[rid] is not None:
+                kinds.append("failover_map")
+        if any(r.request_id == rid for r in cluster.dropped):
+            kinds.append("dropped")
+        if len(kinds) != 1:
+            raise AssertionError(f"{label}: request {rid} in ledgers {kinds}")
+        ledgers[kinds[0]] = ledgers.get(kinds[0], 0) + 1
+    return ledgers
+
+
+def check_survivors(slices, dead, label):
+    for name, sl in slices.items():
+        if name == dead:
+            continue
+        if sl.engine.stats["decode_compiles"] != 0 or len(sl.engine._graphs) != 1:
+            raise AssertionError(f"{label}: survivor {name} captured "
+                                 f"{sl.engine.stats['decode_compiles']} decode graphs")
+        if sl.leases:
+            raise AssertionError(f"{label}: survivor {name} kept leases {sl.leases}")
+
+
+def check_dead_engine(engine, label):
+    """Every later touch of a failed slice's engine raises."""
+    dec = DECODE_SEQ[MID]
+    for op in (lambda: engine.dispatch(MID, (dec,), 1, "decode"),
+               lambda: engine.dispatch(MID, (PREFILL_SEQ,), 1, "prefill"),
+               lambda: engine.decode_chunk(MID, (dec,), 1, 1),
+               lambda: engine.alloc_slots(MID, dec, 1),
+               lambda: engine.free_slots(MID, dec, [0])):
+        try:
+            op()
+        except RuntimeError as e:
+            if "frozen" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{label}: the failed slice's engine accepted a touch")
+
+
+def check_launches(ops, label):
+    used = ops.launch_counts()
+    for name in ("decode_attention", "flash_attention"):
+        if used[name] < 1:
+            raise AssertionError(f"{label}: kernel {name} was not launched while serving")
+    return used
+
+
+def close_cluster(torch, cluster, slices):
+    """Stop every slice's device (their waiter threads hold the engines)
+    and drop the engines."""
+    for sl in slices.values():
+        sl.scheduler.device.close()
+    peak = torch.cuda.max_memory_allocated()
+    slices.clear()
+    cluster.slices.clear()
+    cluster.telemetry_probes.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def cluster_summary(cluster, slices):
+    agg = cluster.aggregate_metrics()
+    return dict(
+        completed=agg["completed_frames"], missed=agg["missed_frames"],
+        dropped=agg["dropped_frames"], lost=agg["lost_frames"],
+        ingested=agg["ingested_frames"], e2e_p99_ms=agg["e2e_p99"] * 1e3,
+        reroutes=agg["reroutes"],
+        per_slice={n: dict(health=sl.health, completed=sl.scheduler.metrics.completed_frames,
+                           missed=sl.scheduler.metrics.missed_frames,
+                           p99_ms=sl.scheduler.metrics.latency_percentile(0.99) * 1e3,
+                           decode_wcet_ms=sl.spec.table.wcet(
+                               MID, (DECODE_SEQ[MID],), sl.engine.max_slots) * 1e3,
+                           dispatches=sl.engine.stats["dispatches"],
+                           decode_compiles=sl.engine.stats["decode_compiles"])
+                   for n, sl in slices.items()},
+    )
+
+
+def phase_cluster(torch):
+    """Three slices on one WallClock; decode streams (2048-seq arena rows
+    leased per stream, real tokens) and prefill streams (512 tokens)
+    through the gateway; one slice is killed mid-decode with fail_slice."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.ingest import IngestGateway
+    from repro_torch.kernels import ops
+
+    names = ("slice0", "slice1", "slice2")
+    cluster, slices, _, deadline = granite_cluster(torch, names)
+    gw = IngestGateway(cluster)
+    sessions = register_streams(gw, get_config(MID), deadline, n_decode=6, n_prefill=3,
+                                seed=100, frames=12)
+    by_slice = {}
+    for rid, name in cluster.placement.items():
+        by_slice.setdefault(name, []).append(rid)
+    log("placement: " + ", ".join(f"{n}: {len(r)}" for n, r in sorted(by_slice.items())))
+    ops.reset_launch_counts()
+    cluster.run(until=cluster.loop.now + 3.2 * deadline / 2)
+    dead = max(by_slice, key=lambda n: (len(by_slice[n]), n))
+    victims = list(by_slice[dead])
+    now = cluster.loop.now
+    if not any(cluster.requests[r].end_time > now for r in victims):
+        raise AssertionError("cluster: the failed slice holds no stream mid-decode")
+    dead_engine = slices[dead].engine
+    completed_at_failure = cluster.aggregate_metrics()["completed_frames"]
+    parked_now = cluster.fail_slice(dead)
+    dead_stats = dict(dead_engine.stats)
+    cluster.run()
+    torch.cuda.synchronize()
+    used = check_launches(ops, "cluster")
+    agg = check_conserved(cluster, "cluster")
+    ledgers = check_accounted(cluster, victims, "cluster")
+    if len(cluster.parked_admitted) + len(cluster.parked_expired) != len(parked_now):
+        raise AssertionError("cluster: parked tails not all resolved")
+    if agg["completed_frames"] <= completed_at_failure:
+        raise AssertionError("cluster: nothing completed after the failure")
+    if sum(1 for t in cluster.failover_map.values() if t is not None) < 1:
+        raise AssertionError("cluster: no tail was re-admitted")
+    check_survivors(slices, dead, "cluster")
+    check_dead_engine(dead_engine, "cluster")
+    if dict(dead_engine.stats) != dead_stats:
+        raise AssertionError("cluster: the failed slice's engine moved after the failure")
+    if any(s.state not in ("active", "failover") or not s.conserved() for s in sessions):
+        raise AssertionError(f"cluster: sessions {[(s.state, s.conserved()) for s in sessions]}")
+    summary = cluster_summary(cluster, slices)
+    summary.update(failed=dead, victims=len(victims), ledgers=ledgers,
+                   parked_at_failure=len(parked_now), launches=used)
+    summary["peak_mem_bytes"] = close_cluster(torch, cluster, slices)
+    log("cluster: " + json.dumps(summary, sort_keys=True))
+
+
+def phase_faults(torch):
+    """Three slices with the watchdog armed: slice0's decode wedges on its
+    third served submit (its waiter blocks on a handle that never
+    resolves), slice1 is throttled on three spaced submits to the larger
+    of 4x its WCET and WCET + 0.16 s (past every deadline, WCET x 3 or
+    the 0.1 s floor, short of every hang, 3x the deadline), slice2 is
+    clean. Nothing but the watchdog acts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import DELAY, QUARANTINED, STALL, FaultPlan, FaultSpec, WatchdogConfig
+    from repro_torch.ingest import IngestGateway
+    from repro_torch.kernels import ops
+
+    wd = WatchdogConfig(slack=3.0, hang_slack=9.0, min_deadline=WATCHDOG_MIN_DEADLINE,
+                        suspect_after=2, quarantine_after=6)
+    plans = {"slice0": FaultPlan((FaultSpec(STALL, 2),)),
+             "slice1": FaultPlan(tuple(FaultSpec(DELAY, i, factor=4.0, extra=0.16)
+                                       for i in (2, 6, 10)))}
+    names = ("slice0", "slice1", "slice2")
+    cluster, slices, _, deadline = granite_cluster(torch, names, watchdog=wd, fault_plans=plans)
+    log(f"watchdog: slack {wd.slack}, hang_slack {wd.hang_slack}, min_deadline "
+        f"{wd.min_deadline} s (decode deadline {wd.deadline_for(0.008):.3f} s, hung after "
+        f"{wd.hang_after(0.008):.3f} s)")
+    gw = IngestGateway(cluster)
+    sessions = register_streams(gw, get_config(MID), deadline, n_decode=6, n_prefill=3,
+                                seed=200, frames=12)
+    victims = [rid for rid, n in cluster.placement.items() if n == "slice0"]
+    if not victims:
+        raise AssertionError("faults: nothing placed on the slice that wedges")
+    ops.reset_launch_counts()
+    horizon = 12 * deadline / 2 + 5.0
+    cluster.run(until=cluster.loop.now + horizon)
+    torch.cuda.synchronize()
+    used = check_launches(ops, "faults")
+    dead = slices["slice0"]
+    quarantines = [(t, r) for t, n, _o, new, r in cluster.health.transitions
+                   if n == "slice0" and new == QUARANTINED]
+    if dead.health != QUARANTINED or dead.alive or not quarantines or "hung" not in quarantines[0][1]:
+        raise AssertionError(f"faults: slice0 not quarantined as hung: {cluster.health.transitions}")
+    stall_t = next(t for _i, kind, t in dead.device.injected if kind == STALL)
+    detect_s = quarantines[0][0] - stall_t
+    throttled = [(o, n_) for _t, n, o, n_, _r in cluster.health.transitions if n == "slice1"]
+    if not slices["slice1"].alive or not throttled:
+        raise AssertionError(f"faults: throttled slice1 transitions {throttled}, alive "
+                             f"{slices['slice1'].alive}")
+    agg = check_conserved(cluster, "faults")
+    ledgers = check_accounted(cluster, victims, "faults")
+    check_survivors(slices, "slice0", "faults")
+    check_dead_engine(dead.engine, "faults")
+    if not dead.device.inner.closed:
+        raise AssertionError("faults: the wedged slice's device is open")
+    if any(not s.conserved() for s in sessions):
+        raise AssertionError("faults: a session lost count of its frames")
+    summary = cluster_summary(cluster, slices)
+    summary.update(stall_to_quarantine_ms=detect_s * 1e3, ledgers=ledgers,
+                   transitions=[(round(t, 6), n, o, w, r)
+                                for t, n, o, w, r in cluster.health.transitions],
+                   reprofiles=dict(cluster.health.reprofiles), launches=used,
+                   wedged_waiter=dead.device.inner.wedged,
+                   session_states=[s.state for s in sessions])
+    summary["peak_mem_bytes"] = close_cluster(torch, cluster, slices)
+    log(f"faults: stall to quarantine {detect_s * 1e3:.3f} ms; " + json.dumps(summary,
+                                                                            sort_keys=True))
+
+
+def spy_dispatches(slices):
+    """Record (leases at dispatch, job, handle) per slice, in dispatch order."""
+    captured = {name: [] for name in slices}
+    for name, sl in slices.items():
+        inner = sl.device.dispatch_fn
+
+        def spy(job, _inner=inner, _sl=sl, _out=captured[name]):
+            leases = {rid: lease[2][0] for rid, lease in _sl.leases.items()}
+            handle = _inner(job)
+            _out.append((leases, job, handle))
+            return handle
+
+        sl.device.dispatch_fn = spy
+    return captured
+
+
+def stream_steps(captured, rid):
+    """(row, staged token, logits row) of every decode step in which
+    stream ``rid`` had a frame (the earliest frame's token is staged)."""
+    import numpy as np
+
+    from repro_torch.core import ChunkJob
+
+    steps = []
+    for leases, job, handle in captured:
+        if rid not in leases:
+            continue
+        out = handle.wait()
+        members = job.jobs if isinstance(job, ChunkJob) else [job]
+        for i, member in enumerate(members):
+            frames = [f for f in member.frames if f.request_id == rid]
+            if frames:
+                logits = out[i] if isinstance(job, ChunkJob) else out
+                row = leases[rid]
+                steps.append((row, int(np.asarray(frames[0].payload)), logits[row]))
+    return steps
+
+
+def twin_replay_equal(torch, twin, steps):
+    """Replay one stream's steps in its row on ``twin`` (an engine of the
+    same max_slots, no other stream); every step's logits row must be
+    bit-equal to the served one."""
+    seq = DECODE_SEQ[MID]
+    row = steps[0][0]
+    twin.alloc_slots(MID, seq, row + 1)
+    if row:
+        twin.free_slots(MID, seq, list(range(row)))
+    for i, (r, tok, served) in enumerate(steps):
+        if r != row:
+            raise AssertionError("gateway: a stream changed rows")
+        got = twin.dispatch(MID, (seq,), 1, "decode", slots=[row], payload={row: tok}).wait()
+        if not torch.equal(got[row], served):
+            diff = float((got[row].float() - served.float()).abs().max())
+            raise AssertionError(f"gateway: step {i} of a stream in row {row} differs from "
+                                 f"its twin replay (max |diff| {diff:.3e})")
+    twin.free_slots(MID, seq, [row])
+    return len(steps)
+
+
+def phase_gateway(torch):
+    """The ingest gateway over two granite slices with chunk_depth=8: a
+    camera decode stream and a bursty decode stream (12-frame bursts at
+    twice the declared rate: a window holding more frames than arena rows
+    sheds the excess) per slice, a prefill stream, and a reconnecting
+    client's backlog of 8 leased frames submitted at one instant, which
+    the EDF worker fuses into chunks on the slot-aware chunk path."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Category, ChunkJob, Frame, JobInstance, Request
+    from repro_torch.ingest import BurstSource, CameraSource, IngestGateway
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import InferenceEngine
+
+    cfg = get_config(MID)
+    names = ("slice0", "slice1")
+    cluster, slices, _, deadline = granite_cluster(torch, names, chunk_depth=8)
+    captured = spy_dispatches(slices)
+    gw = IngestGateway(cluster)
+    dec = Category(MID, (DECODE_SEQ[MID],))
+    period = deadline / 2
+    sessions = [gw.register(CameraSource(period=period, n_frames=10, payload_shape=(),
+                                         vocab=cfg.vocab_size, seed=300 + i), dec,
+                            relative_deadline=deadline) for i in range(2)]
+    sessions += [gw.register(BurstSource(period=period, n_frames=24, burst=12, duty=0.5,
+                                         intra_frac=0.125, payload_shape=(),
+                                         vocab=cfg.vocab_size, seed=310 + i), dec,
+                             relative_deadline=deadline) for i in range(2)]
+    sessions.append(gw.register(CameraSource(period=period, n_frames=6,
+                                             payload_shape=(PREFILL_SEQ,),
+                                             vocab=cfg.vocab_size, seed=320),
+                                Category(MID, (PREFILL_SEQ,)), relative_deadline=deadline))
+    early = gw.register(CameraSource(period=period, n_frames=10, payload_shape=(),
+                                     vocab=cfg.vocab_size, seed=330), dec,
+                        relative_deadline=deadline)
+    if any(s.state != "active" for s in sessions + [early]):
+        raise AssertionError(f"gateway: sessions {[s.state for s in sessions + [early]]}")
+    backlog = Request(category=dec, period=period, relative_deadline=deadline, n_frames=8)
+    if not cluster.submit_request(backlog, external_arrivals=True):
+        raise AssertionError("gateway: the backlog stream was not admitted")
+    home = slices[cluster.placement[backlog.request_id]]
+    toks = np.random.default_rng(340).integers(0, cfg.vocab_size, size=8).astype(np.int32)
+
+    def reconnect():
+        now = cluster.loop.now
+        for i, tok in enumerate(toks):
+            home.scheduler.metrics.record_ingest()
+            f = Frame(request_id=backlog.request_id, category=dec, index=i, arrival_time=now,
+                      deadline=now + 30.0, payload=tok)
+            home.scheduler.worker.submit(JobInstance(category=dec, frames=[f],
+                                                     release_time=now,
+                                                     relative_deadline=30.0,
+                                                     shape_key=dec.shape_key))
+
+    def close_early():
+        sl = slices[early.slice_name]
+        gw.close(early)
+        if early.request_id in sl.leases:
+            raise AssertionError("gateway: closing a stream kept its lease")
+
+    cluster.loop.schedule(cluster.loop.now + 1.5 * period, reconnect)
+    cluster.loop.schedule(cluster.loop.now + 4.5 * period, close_early)
+    ops.reset_launch_counts()
+    cluster.run()
+    torch.cuda.synchronize()
+    used = check_launches(ops, "gateway")
+    agg = check_conserved(cluster, "gateway")
+    chunks = [job.k for cap in captured.values() for _, job, _ in cap
+              if isinstance(job, ChunkJob)]
+    if not chunks or max(chunks) < 2:
+        raise AssertionError(f"gateway: no burst fused into a chunk of 2 or more: {chunks}")
+    # Shed frames, three ways: the sessions, each slice's metrics and its
+    # adaptation module; every lease released (the shedder advanced the
+    # countdowns of truncated streams).
+    shed_sessions = sum(s.frames_dropped for s in sessions + [early])
+    shed_metrics = sum(sl.scheduler.metrics.dropped_frames for sl in slices.values())
+    shed_adapt = sum(sum(sl.scheduler.adaptation.sheds.values()) for sl in slices.values())
+    if not shed_sessions == shed_metrics == shed_adapt > 0:
+        raise AssertionError(f"gateway: shed frames {shed_sessions} (sessions), "
+                             f"{shed_metrics} (metrics), {shed_adapt} (adaptation)")
+    if early.state != "closed" or any(s.state != "active" for s in sessions):
+        raise AssertionError("gateway: session states")
+    if not all(s.conserved() for s in sessions + [early]):
+        raise AssertionError("gateway: a session lost count of its frames")
+    for sl in slices.values():
+        if sl.leases or any(len(a.free) != a.max_slots for a in sl.engine._arenas.values()):
+            raise AssertionError(f"gateway: {sl.spec.name} kept leases {sl.leases}")
+    check_survivors(slices, None, "gateway")
+    # Leased-row logits, bit for bit, against a twin engine of the same
+    # max_slots (sharing the slice's weights) replaying one stream alone.
+    checked = {}
+    for name, sl in slices.items():
+        twin = InferenceEngine({MID: cfg}, max_slots=sl.engine.max_slots, device="cuda",
+                               params=sl.engine.params)
+        streams = [(f"camera {s.request_id}", s.request_id) for s in sessions[:2]
+                   if s.slice_name == name]
+        streams += [(f"burst {s.request_id}", s.request_id) for s in sessions[2:4]
+                    if s.slice_name == name]
+        if sl is home:
+            streams.append(("backlog", backlog.request_id))
+        for label, rid in streams:
+            steps = stream_steps(captured[name], rid)
+            if steps:
+                checked[f"{name} {label}"] = twin_replay_equal(torch, twin, steps)
+        del twin
+    if "backlog" not in " ".join(checked) or sum(1 for k in checked if "camera" in k) < 1:
+        raise AssertionError(f"gateway: twin replays {checked}")
+    summary = cluster_summary(cluster, slices)
+    summary.update(chunks=chunks, shed=shed_sessions, launches=used, twin_steps=checked,
+                   collisions=sum(sl.scheduler.metrics.payload_collisions
+                                  for sl in slices.values()),
+                   chunk_steps={n: sl.engine.stats["chunk_steps"] for n, sl in slices.items()})
+    captured.clear()
+    summary["peak_mem_bytes"] = close_cluster(torch, cluster, slices)
+    log("gateway: leased rows bit-equal to twin replays " + json.dumps(checked)
+        + "; " + json.dumps(summary, sort_keys=True))
 
 
 def _leaves(tree):
@@ -1046,6 +1546,12 @@ def main() -> int:
         served = phase_serve(torch, DECODE_SEQ, {"decode": 2, "prefill": 1}, frames=8,
                              deadline_factor=6.0, chunk_depth=8)
         log("served chunked: " + json.dumps(served, sort_keys=True))
+    with Phase("cluster"):
+        phase_cluster(torch)
+    with Phase("faults"):
+        phase_faults(torch)
+    with Phase("gateway"):
+        phase_gateway(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")

@@ -1,8 +1,7 @@
-"""DeepRT core: the scheduler modules that single-device serving imports.
+"""DeepRT core: the paper's contribution as a composable library.
 
 A copy of the numpy-only ``repro.core`` modules with imports re-pointed
-here and no change in behaviour. ``cluster`` and ``baselines`` are not
-ported yet (ROADMAP.md).
+here and no change in behaviour, exporting the same names.
 """
 from repro_torch.core.adaptation import AdaptationModule, default_shrink
 from repro_torch.core.admission import (
@@ -13,12 +12,25 @@ from repro_torch.core.admission import (
     phase1_from_scheduler,
     snapshot_from_scheduler,
 )
+from repro_torch.core.baselines import AIMD, BATCH, BATCHDelay, SEDF
 from repro_torch.core.bucketing import (
     arena_slots,
     bucket,
     bucket_sizes,
     padding_fraction,
     slice_arena_slots,
+)
+from repro_torch.core.cluster import (
+    HEALTHY,
+    QUARANTINED,
+    SUSPECT,
+    ClusterScheduler,
+    LiveSlice,
+    ParkedTail,
+    Slice,
+    SliceHealthMonitor,
+    SliceSpec,
+    build_sim_cluster,
 )
 from repro_torch.core.disbatcher import WINDOW_FRACTION, DisBatcher
 from repro_torch.core.edf import ChunkPolicy, DeadlineQueue, EDFWorker
@@ -76,11 +88,25 @@ __all__ = [
     "SystemState",
     "phase1_from_scheduler",
     "snapshot_from_scheduler",
+    "AIMD",
+    "BATCH",
+    "BATCHDelay",
+    "SEDF",
     "arena_slots",
     "bucket",
     "bucket_sizes",
     "padding_fraction",
     "slice_arena_slots",
+    "ClusterScheduler",
+    "LiveSlice",
+    "Slice",
+    "SliceSpec",
+    "SliceHealthMonitor",
+    "ParkedTail",
+    "build_sim_cluster",
+    "HEALTHY",
+    "SUSPECT",
+    "QUARANTINED",
     "WINDOW_FRACTION",
     "DisBatcher",
     "DeadlineQueue",

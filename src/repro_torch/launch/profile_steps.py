@@ -9,8 +9,8 @@ and 8 steps, and its prefill buckets, then for each reports:
 
 - the decode step eagerly (the step's body run outside its CUDA graph,
   as every decode step ran before the graphs), then as a graph replay;
-  k-step decode chunks (one replay each); prefill at batch 1 and 8
-  (eager);
+  k-step decode chunks (k replays of the step graph each); prefill at
+  batch 1 and 8 (eager);
 - wall ms per dispatch (host clock around dispatch + wait, median of RUNS
   unprofiled dispatches) and per step (wall / k);
 - host enqueue ms (dispatch returning, before the device finishes);
@@ -23,8 +23,9 @@ and 8 steps, and its prefill buckets, then for each reports:
 - the TOP kernels by device time.
 
 Then per model, eight decode steps four ways, each under one handle:
-8 back-to-back replays of the step graph, 4 of the 2-step chunk graph,
-2 of the 4-step one, and 1 replay of the 8-step one. The four take
+8 single-step dispatches, 4 chunks of 2 steps, 2 of 4 and 1 of 8 (every
+way 8 replays of the step graph; the chunks copy each step's logits
+out and carry the cursors on the device between replays). The four take
 turns in every one of RUNS rounds (so drift in clocks or the host hits
 them alike). Per way: wall and event span per step (medians), device
 busy per step, and from one profiled dispatch the gaps between
@@ -154,7 +155,7 @@ def _gap_profile(prof, steps):
 
 def eight_steps(engine, mid, seq, batch):
     """Eight decode steps as 8 x k=1, 4 x k=2, 2 x k=4 and 1 x k=8
-    replays, each way under one handle, taking turns."""
+    dispatches, each way under one handle, taking turns."""
     ways = {}
     for k in (1, 2, 4, 8):
         one = _dispatcher(engine, mid, "decode", seq, batch, k)

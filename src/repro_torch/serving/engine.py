@@ -29,21 +29,25 @@ hand:
   written in place by every step. ``donate_cache`` is accepted for
   interface parity and has no effect.
 - In place of XLA's compiled programs, each decode step (per (mid, seq))
-  and each k-step decode chunk (per (mid, seq, k)) is ONE CUDA graph on a
-  CUDA device. A key's first call runs eagerly as that call's real step
-  (it also loads the kernel libraries and cuBLAS's handles); the graph is
-  captured right after it, which runs no kernel and leaves the arena as
-  the eager step left it. Every later call copies its inputs (tokens,
-  cursors, active bitmap, a chunk's step masks) into the graph's static
+  is ONE CUDA graph on a CUDA device. A key's first call runs eagerly as
+  that call's real step (it also loads the kernel libraries and cuBLAS's
+  handles); the graph is captured right after it, which runs no kernel
+  and leaves the arena as the eager step left it. Every later call copies
+  its inputs (tokens, cursors, active bitmap) into the graph's static
   buffers on the replaying stream, replays, and clones the logits out,
   so no handle's outputs are overwritten by the next replay. The graph
   reads and writes the arena at the captured addresses, so the arena and
   the parameters are never rebound. ``stats["decode_compiles"]`` counts
-  captures (on the CPU, step builds) and stays 0 after warm-up; a failed
-  capture raises, with no eager path behind it. Prefill stays eager.
+  captures (on the CPU, step and chunk builds) and stays 0 after
+  warm-up; a failed capture raises, with no eager path behind it.
+  Prefill stays eager.
 - ``decode_chunk`` runs k decode steps as one dispatch: the single step
   repeated in order (the reference's ``lax.scan``), bit-identical to k
-  single-step dispatches.
+  single-step dispatches. On a CUDA device that is k back-to-back
+  replays of the (mid, seq) step graph on one stream (one graph of k
+  steps would leave the device waiting on the host's launch of its
+  thousands of nodes), each step's logits copied into the chunk's own
+  output before the next replay overwrites them.
 - Parameters are made ON THE DEVICE, in each config's ``param_dtype``,
   from a ``torch.Generator`` on that device seeded from ``seed``;
   callers may pass ready parameters instead (``params=``).
@@ -135,10 +139,10 @@ class SlotArena:
 
 
 class _DecodeGraph:
-    """One decode step or k-step chunk captured as a CUDA graph: the
-    static input buffers it reads, the static outputs it writes, and the
-    kernel launches one replay makes, by wrapper (what the wrappers
-    counted while it was captured)."""
+    """One decode step captured as a CUDA graph: the static input buffers
+    it reads, the static outputs it writes, and the kernel launches one
+    replay makes, by wrapper (what the wrappers counted while it was
+    captured)."""
 
     def __init__(self, fn, args: Sequence[torch.Tensor], pool):
         self.inputs = [a.clone() for a in args]
@@ -168,6 +172,17 @@ class _DecodeGraph:
         self.graph.replay()
         kernel_ops.add_launch_counts(self.launches)
         return self.outputs
+
+
+def _steps_in_order(step, toks, cur, active, masks):
+    """k decode steps of ``step`` in order, eagerly: step i consumes
+    ``toks[i]`` with ``active & masks[i]`` and the cursors step i-1 left.
+    Returns the (k, m, V) logits and the final cursors."""
+    logits = []
+    for i in range(toks.shape[0]):
+        lg, cur = step(toks[i], cur, active & masks[i])
+        logits.append(lg)
+    return torch.stack(logits), cur
 
 
 # Cached device row masks (``InferenceEngine._row_mask``) kept at most.
@@ -315,34 +330,25 @@ class InferenceEngine:
         return self._steps[key]
 
     def _decode_chunk_fn(self, mid: str, seq: int, k: int):
-        """THE k-step decode chunk for (mid, seq, k): the single step's
-        body called k times in order, as the reference's ``lax.scan``.
-        ``run(toks (k, m), cur, active, masks (k, m)) -> (logits (k, m, V),
-        new_cur)``; step i runs with ``act = active & masks[i]``, so only
-        rows set in ``act`` advance their cursor. Being k calls of the
-        step makes the chunk bit-identical to k single steps (a contract,
-        tests/test_torch_decode_chunking.py)."""
+        """THE k-step decode chunk for (mid, seq, k) on the CPU: the single
+        step's body called k times in order, as the reference's
+        ``lax.scan``. ``run(toks (k, m), cur, active, masks (k, m)) ->
+        (logits (k, m, V), new_cur)``; step i runs with ``act = active &
+        masks[i]``, so only rows set in ``act`` advance their cursor. Being
+        k calls of the step makes the chunk bit-identical to k single steps
+        (a contract, tests/test_torch_decode_chunking.py)."""
         key = ("decode_chunk", mid, seq, k)
         if key not in self._steps:
-            # One build per key, captured at its first call on a CUDA device.
             self.stats["decode_compiles"] += 1
             step = self._decode_body(mid, seq)
-
-            def run(toks, cur, active, masks):
-                logits = []
-                for i in range(k):
-                    lg, cur = step(toks[i], cur, active & masks[i])
-                    logits.append(lg)
-                return torch.stack(logits), cur
-
-            self._steps[key] = run
+            self._steps[key] = lambda *args: _steps_in_order(step, *args)
         return self._steps[key]
 
     def _run_decode(self, key: Tuple, fn, args: Sequence[torch.Tensor]):
-        """Run one decode step or chunk; returns (logits, new_cur), the
-        logits the caller's own. On the CPU ``fn`` runs eagerly. On a CUDA
-        device a key's first call runs eagerly as that call's real step and
-        its graph is captured after it; later calls replay the graph."""
+        """Run one decode step; returns (logits, new_cur), the logits the
+        caller's own. On the CPU ``fn`` runs eagerly. On a CUDA device a
+        key's first call runs eagerly as that call's real step and its
+        graph is captured after it; later calls replay the graph."""
         graph = self._graphs.get(key)
         if graph is not None:
             logits, new_cur = graph.replay(args)
@@ -351,6 +357,33 @@ class InferenceEngine:
         if self.device.type == "cuda":
             self._graphs[key] = _DecodeGraph(fn, args, self._graph_pool)
         return out
+
+    def _run_chunk(self, mid: str, seq: int, k: int, toks, cur, active, masks):
+        """Run one k-step chunk; returns ((k, m, V) logits, new_cur). On
+        the CPU the eager loop ``_decode_chunk_fn``. On a CUDA device, k
+        back-to-back replays of the (mid, seq) step graph on the current
+        stream: before replay i its static inputs take step i's tokens,
+        the running cursors (replay i-1's static ``new_cur``) and
+        ``active & masks[i]``; after it, its static logits are copied into
+        the chunk's output. A key with no step graph yet runs its k steps
+        eagerly, and the step graph is captured after them."""
+        if self.device.type != "cuda":
+            return self._decode_chunk_fn(mid, seq, k)(toks, cur, active, masks)
+        key = ("decode", mid, seq)
+        acts = active & masks
+        graph = self._graphs.get(key)
+        if graph is None:
+            step = self._decode_fn(mid, seq)
+            logits, new_cur = _steps_in_order(step, toks, cur, active, masks)
+            self._graphs[key] = _DecodeGraph(
+                step, (toks[-1], new_cur, acts[-1]), self._graph_pool)
+            return logits, new_cur
+        static_logits = graph.outputs[0]
+        out = static_logits.new_empty((k,) + tuple(static_logits.shape))
+        for i in range(k):
+            lg, cur = graph.replay((toks[i], cur, acts[i]))
+            out[i].copy_(lg)
+        return out, cur
 
     # ----- slot arena ------------------------------------------------------
     def arena(self, mid: str, seq: int) -> SlotArena:
@@ -677,8 +710,8 @@ class InferenceEngine:
 
         The chunked twin of a decode ``dispatch``: the same slot-arena
         semantics (``slots`` must be ALL live rows; prefix mode when
-        ``slots=None``), executed k steps deep by ``_decode_chunk_fn``,
-        one CUDA-graph replay on the card: bit-identical to k sequential
+        ``slots=None``), executed k steps deep by ``_run_chunk`` (k replays
+        of the step graph on the card): bit-identical to k sequential
         single-step dispatches, with the k-1 intermediate host returns
         removed. The handle's outputs are the (k, max_slots, V) logits.
 
@@ -756,7 +789,6 @@ class InferenceEngine:
             ring.attach_consumer(_chunk_guard)
         toks = torch.stack(staged)
         masks = self._step_masks(k, step_rows)
-        fn = self._decode_chunk_fn(mid, seq, k)
         kk = batch_size if self.masked_decode else m
         self.stats["dispatches"] += 1
         self.stats["chunk_steps"] += k
@@ -764,9 +796,7 @@ class InferenceEngine:
         self.stats["bucket_rows"] += m * k
         self.stats["real_slots"] += batch_size * seq * k
         self.stats["total_slots"] += kk * seq * k
-        logits, new_cur = self._run_decode(
-            ("decode_chunk", mid, seq, k), fn, (toks, cur, active, masks)
-        )
+        logits, new_cur = self._run_chunk(mid, seq, k, toks, cur, active, masks)
         if slots is not None:
             arena.cur.copy_(new_cur)
         handle = StepHandle(logits, mid, "decode", batch_size, m, steps=k,

@@ -410,12 +410,13 @@ def _leaves_of(arena):
 
 
 def _warm(eng, arch, depths=(1, 2, 4, 8)):
-    """Capture the step and every chunk depth in prefix mode (the
-    profiler's warm-up), before any row is leased."""
+    """Run the step and every chunk depth in prefix mode (the profiler's
+    warm-up), before any row is leased: one capture, the step graph's,
+    which every chunk depth replays."""
     eng.execute(arch, (GSEQ,), eng.max_slots, "decode")
     for k in depths:
         eng.execute_chunk(arch, (GSEQ,), eng.max_slots, k)
-    assert eng.stats["decode_compiles"] == 1 + len(depths)
+    assert eng.stats["decode_compiles"] == 1
 
 
 @pytest.mark.cuda
@@ -485,13 +486,14 @@ def test_chunk_graph_bit_identical_to_step_graphs(cuda, arch, dtype, k, warm):
     for i in range(k):
         assert torch.equal(chunk[i], steps[i])
     assert [t.data_ptr() for t in _leaves_of(a.arena(arch, GSEQ))] == ptrs
-    # The chunk counts k steps' launches, as k steps do.
+    # The chunk counts k steps' launches, as k steps do: it replays the
+    # step graph, the only graph either engine holds.
     step_graph = b._graphs[("decode", arch, GSEQ)]
-    assert a._graphs[("decode_chunk", arch, GSEQ, k)].launches == {
-        n: k * c for n, c in step_graph.launches.items()}
+    assert set(a._graphs) == set(b._graphs) == {("decode", arch, GSEQ)}
+    assert a._graphs[("decode", arch, GSEQ)].launches == step_graph.launches
     assert {n: after[n] - before[n] for n in after} == {
         n: 2 * k * c for n, c in step_graph.launches.items()}
-    assert a.stats["decode_compiles"] == b.stats["decode_compiles"] == (5 if warm else 1)
+    assert a.stats["decode_compiles"] == b.stats["decode_compiles"] == 1
 
 
 @pytest.mark.cuda
@@ -551,3 +553,40 @@ def test_consecutive_replays_hold_distinct_logits(cuda, arch):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert not torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_chunk_is_k_step_replays_one_capture_per_key(cuda, arch):
+    """A k-step chunk on the card is k replays of the (mid, seq) step
+    graph: depths 1-8 on two seqs capture one graph per seq and nothing
+    per depth, a chunk replays its seq's step graph exactly k times, and
+    its logits are its own (the next replay does not overwrite them)."""
+    eng = _graph_engine(cuda, arch, torch.float32)
+    seqs = (GSEQ, GSEQ + 8)
+    for seq in seqs:
+        eng.execute(arch, (seq,), 8, "decode")
+        for k in (1, 2, 4, 8):
+            eng.execute_chunk(arch, (seq,), 8, k)
+    assert eng.stats["decode_compiles"] == len(seqs)
+    assert set(eng._graphs) == {("decode", arch, seq) for seq in seqs}
+    eng.reset_stats()
+    graph = eng._graphs[("decode", arch, GSEQ)]
+    replays = []
+    real = graph.replay
+    graph.replay = lambda args: replays.append(1) or real(args)
+    slots = eng.alloc_slots(arch, GSEQ, 3, start_pos=1)
+    for k in (1, 2, 4, 8):
+        replays.clear()
+        before = ops.launch_counts()
+        h = eng.decode_chunk(arch, (GSEQ,), 3, k, slots=slots,
+                             payloads=[{s: 5 * i + s for s in slots} for i in range(k)])
+        out = h.wait()
+        assert len(replays) == k
+        assert {n: c - before[n] for n, c in ops.launch_counts().items()} == {
+            n: k * c for n, c in graph.launches.items()}
+        assert out.shape[0] == k and out.data_ptr() != graph.outputs[0].data_ptr()
+        kept = out.clone()
+        eng.dispatch(arch, (GSEQ,), 3, "decode", slots=slots).wait()
+        assert torch.equal(out, kept)
+    assert eng.stats["decode_compiles"] == 0
