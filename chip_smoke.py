@@ -87,6 +87,27 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              and each decode stream's leased-row logits bit-equal to a
              twin engine of the same max_slots replaying that stream
              alone.
+12. transport — the datagram transport in front of two granite slices
+             (build_live_transport, bounds 1/2): 4 decode streams and 1
+             prefill stream, each over a SimLink with the reference's
+             chaos mix (drop, duplicate, reorder, delay) from its own
+             seed; session 1's home slice failed mid-stream. Checks every
+             delivered payload against its source's bytes, in order and
+             once; wire and frame conservation; every displaced request
+             in one ledger; real bytes delivered after the re-home; zero
+             survivor captures; a frozen dead engine. Then one decode
+             stream over UdpClientLink -> UdpServerBinding on 127.0.0.1
+             (HELLO/HELLO_ACK, its bytes checked).
+13. serve_moe — mixtral-8x7b at full width, MOE_LAYERS (16) of its 32
+             layers, bf16: 2-layer float32 numerics (kernel path against
+             the dense path and the dense MoE oracle, decode against
+             forward, at a drop-free capacity), both attention kernels
+             at its head shapes, its step graph (replay = eager, an
+             8-step chunk = 8 replays, bit for bit), then served by
+             DeepRT (a prefill and a decode category): no miss, zero
+             decode captures while serving, both attention kernels
+             launched; logs weights, peak memory, WCETs and the
+             token-expert pairs dropped past capacity.
 
 Each serving phase sets the kernel launch counts to 0 before it serves
 and reads them after, and fails unless every kernel of its path
@@ -111,6 +132,11 @@ ROOT = Path(__file__).resolve().parent
 MID = "granite-3-2b"
 RWKV = "rwkv6-1.6b"
 RGEMMA = "recurrentgemma-9b"
+MIXTRAL = "mixtral-8x7b"
+# mixtral-8x7b at full width is 46.7B parameters, 93 GB in bf16: past the
+# card's 80 GB. It is served 16 of its 32 layers deep (23.5B parameters,
+# about 47 GB), every width as published.
+MOE_LAYERS = 16
 # Decode seq per model in the multi-tenant serve: recurrentgemma's runs
 # past its 2048-slot ring, as a user of a 2048-window model would. Its
 # profiled decode step attends to a full ring (the engine presents one
@@ -671,7 +697,10 @@ def phase_model(torch, mid, n_layers, **overrides):
     """One model at full width, ``n_layers`` deep, float32, random weights
     from the package's own init: the kernel path (default impl) against
     impl="dense" on the same parameters, prefill plus decode against
-    both, and decode against the full forward."""
+    both, and decode against the full forward. For a MoE model the dense
+    side's full-sequence passes also run the dense MoE oracle (every token
+    through every expert), so ``moe_capacity_factor`` must leave the
+    dispatch drop-free (>= n_experts / top_k)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -679,7 +708,7 @@ def phase_model(torch, mid, n_layers, **overrides):
 
     cfg = get_config(mid, n_layers=n_layers, param_dtype="float32", **overrides)
     m_k = model_for(cfg)
-    m_d = model_for(dataclasses.replace(cfg, impl="dense"))
+    m_d = model_for(dataclasses.replace(cfg, impl="dense", moe_dense=cfg.is_moe))
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = m_k.init(gen, device="cuda")
     b, s = 2, 129
@@ -712,7 +741,8 @@ def phase_model(torch, mid, n_layers, **overrides):
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth=1):
+def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth=1,
+                overrides=None, inspect=None):
     """Serve full-width models (bf16, random weights from seed 0) from one
     engine and one DeepRT through build_live_scheduler: per model a
     prefill category (seq 512, batch buckets 1-8) and a decode category
@@ -728,7 +758,11 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
     (every depth profiled, and captured, in the warm-up), and adds per
     model one burst of 8 decode jobs of its decode category, submitted at
     one instant with a 30 s deadline, which the EDF worker fuses into
-    chunks: each model must serve at least one chunk of 2 or more steps."""
+    chunks: each model must serve at least one chunk of 2 or more steps.
+
+    ``overrides``: config overrides by model id (a depth cut).
+    ``inspect(engine)``, if given, runs after the checks, before the
+    device closes; its dict joins the returned record."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import Category, ChunkJob, Frame, JobInstance, Request
     from repro_torch.kernels import ops
@@ -739,7 +773,7 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log(f"device memory allocated before the engine: {torch.cuda.memory_allocated()} bytes")
-    cfgs = {mid: get_config(mid) for mid in decode_seq}
+    cfgs = {mid: get_config(mid, **(overrides or {}).get(mid, {})) for mid in decode_seq}
     cats = []
     for mid, dec_seq in decode_seq.items():
         cats += [(mid, (PREFILL_SEQ,), "prefill"), (mid, (dec_seq,), "decode")]
@@ -875,6 +909,7 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
         log(f"{mid}: decode logits {tuple(logits.shape)} finite, prefill logits finite, "
             f"prefill tokens {nxt.tolist()}")
         del pre
+    extra = inspect(engine) if inspect is not None else {}
     # Stop the device's waiter thread: it holds the engine (and its
     # parameters, arenas and graphs) for as long as it runs.
     sched.device.close()
@@ -886,21 +921,23 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
         launches_profiling=profiling_launches, missed=m.missed_frames,
         chunk_submits=m.chunk_submits, chunked_steps=m.chunked_steps,
         chunks_by_model=chunks,
-        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), **extra,
     )
 
 
 # Kernel wrapper calls per decode step (the captured launches of one step
 # replay), by model: granite's 40 attn layers; rwkv6's 24 rwkv layers;
-# recurrentgemma's 12 swa and 26 rglru layers.
+# recurrentgemma's 12 swa and 26 rglru layers; mixtral's 16 swa layers
+# (MOE_LAYERS).
 CALLS_PER_STEP = {
     MID: {"decode_attention": 40, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
     RWKV: {"decode_attention": 0, "flash_attention": 0, "wkv6": 24, "rglru_scan": 0},
     RGEMMA: {"decode_attention": 12, "flash_attention": 0, "wkv6": 0, "rglru_scan": 26},
+    MIXTRAL: {"decode_attention": 16, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
 }
 
 
-def phase_graphs(torch, mid, seq, k=8):
+def phase_graphs(torch, mid, seq, k=8, **overrides):
     """One model at full width (bf16, 8 arena rows, seq ``seq``) with its
     decode step and k-step chunk as CUDA graphs. Scattered rows are
     leased at mixed cursors; the arena is snapshot, one k-step chunk runs
@@ -910,7 +947,7 @@ def phase_graphs(torch, mid, seq, k=8):
     bit for bit. Also: one step replay against the eager step on the same
     arena (restored again), bit for bit too, the arena's storage
     unchanged, and each graph's launches per replay against
-    CALLS_PER_STEP."""
+    CALLS_PER_STEP. ``overrides`` go to the config (a depth cut)."""
     import numpy as np
 
     from repro_torch.configs.registry import get_config
@@ -921,7 +958,7 @@ def phase_graphs(torch, mid, seq, k=8):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg = get_config(mid)
+    cfg = get_config(mid, **overrides)
     engine = InferenceEngine({mid: cfg}, seed=0, max_slots=8, chunk_depth=k, device="cuda")
     arena = engine.arena(mid, seq)
     leaves = lambda: tree_leaves(arena.cache) + [arena.cur, arena.active]
@@ -1023,14 +1060,15 @@ CLUSTER_DEADLINE_FACTOR = 8.0
 WATCHDOG_MIN_DEADLINE = 0.1
 
 
-def granite_cluster(torch, names, **kw):
+def granite_cluster(torch, names, transport=False, **kw):
     """Full-width granite-3-2b on len(names) slices of one card: each its
     own engine (seeded weights, a 2048-seq decode arena), profiled alone,
     with a Phase-1 bound of 1 / len(names) so the slices' admissions
     together claim the card once. Returns (cluster, slices, cats,
-    deadline)."""
+    deadline), and with ``transport`` (build_live_transport; ``kw`` goes
+    to it) also the gateway, the transport server and the UDP binding."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.serving.batcher_bridge import build_live_cluster
+    from repro_torch.serving.batcher_bridge import build_live_cluster, build_live_transport
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1038,9 +1076,11 @@ def granite_cluster(torch, names, **kw):
     dec = (DECODE_SEQ[MID],)
     cats = [(MID, (PREFILL_SEQ,), "prefill"), (MID, dec, "decode")]
     t0 = time.perf_counter()
-    cluster, slices = build_live_cluster(
+    build = build_live_transport if transport else build_live_cluster
+    built = build(
         {MID: get_config(MID)}, cats, slice_names=names, batch_sizes=(1, 2, 4, 8),
         utilization_bounds={n: 1.0 / len(names) for n in names}, device="cuda", **kw)
+    cluster, slices = built[:2]
     torch.cuda.synchronize()
     worst = 0.0
     for name, sl in slices.items():
@@ -1061,7 +1101,7 @@ def granite_cluster(torch, names, **kw):
     log(f"{len(names)} slices built and profiled in {time.perf_counter() - t0:.3f} s; "
         f"device memory {torch.cuda.memory_allocated()} bytes (peak "
         f"{torch.cuda.max_memory_allocated()}); stream deadline {deadline * 1e3:.3f} ms")
-    return cluster, slices, cats, deadline
+    return (cluster, slices, cats, deadline) + tuple(built[2:])
 
 
 def register_streams(gateway, cfg, deadline, n_decode, n_prefill, seed, frames):
@@ -1477,6 +1517,293 @@ def phase_gateway(torch):
         + "; " + json.dumps(summary, sort_keys=True))
 
 
+# The chaos mix of the reference's transport robustness replay
+# (benchmarks/transport_robustness.py): per-send drop, duplicate, reorder
+# and delay probabilities, each link's plan from its own seed.
+LINK_SEED = 2026
+CHAOS = dict(p_drop=0.06, p_dup=0.06, p_reorder=0.08, p_delay=0.06, reorder_hold=(0.05, 0.2))
+
+
+def transport_counts(transport, clients):
+    """Wire outcomes summed over the sessions."""
+    tss = list(transport.sessions.values())
+    return dict(
+        delivered=sum(ts.delivered for ts in tss),
+        dropped=sum(ts.shed + ts.late_rejected for ts in tss),
+        lost=sum(ts.net_lost + ts.lost_to_slice for ts in tss),
+        refused=sum(ts.refused for ts in tss), duplicates=sum(ts.duplicates for ts in tss),
+        evicted=sum(ts.evicted for ts in tss),
+        credits=sum(c.credits_seen for c in clients),
+        retransmits=sum(c.retransmits for c in clients))
+
+
+def udp_arm(cluster, transport, binding, deadline, frames=6):
+    """One decode stream's frames over UdpClientLink -> UdpServerBinding on
+    127.0.0.1 (port 0): the HELLO/HELLO_ACK handshake, then the frames,
+    with the loop on a thread of its own (the sockets' threads post into
+    it). Returns the session and its source."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Category
+    from repro_torch.ingest import CameraSource, TransportSource, UdpClientLink
+
+    loop = cluster.loop
+    link = UdpClientLink(loop, binding.addr)
+    loop.hold()
+    runner = threading.Thread(target=loop.run, daemon=True)
+    runner.start()
+    try:
+        src = CameraSource(period=deadline / 2, n_frames=frames, payload_shape=(),
+                           vocab=get_config(MID).vocab_size, seed=600)
+        client = TransportSource(src, Category(MID, (DECODE_SEQ[MID],)), deadline, link)
+        sid, ok = link.handshake(client, timeout=5.0)
+        if not ok:
+            raise AssertionError(f"transport: UDP handshake refused (sid {sid})")
+        client.start_remote(sid)
+        limit = time.time() + frames * deadline + 30.0
+        while time.time() < limit and len(transport.sessions[sid].seen) < frames:
+            time.sleep(0.02)
+        loop.post(transport.finalize_all)
+        while time.time() < limit and not transport.sessions[sid].finalized:
+            time.sleep(0.02)
+        ts = transport.sessions[sid]
+        if not ts.finalized or ts.delivered_log != list(range(frames)):
+            raise AssertionError(f"transport: UDP session delivered {ts.delivered_log} "
+                                 f"(finalized {ts.finalized})")
+        for seq, payload in ts.delivered_payloads.items():
+            if not np.array_equal(payload, src.payload(seq)):
+                raise AssertionError(f"transport: UDP frame {seq} differs from its source")
+        if not ts.wire_conserved() or not binding._thread.is_alive():
+            raise AssertionError("transport: UDP session not conserved or rx thread down")
+        return ts, src
+    finally:
+        link.close()
+        binding.close()
+        loop.release()
+        runner.join(timeout=10.0)
+        if runner.is_alive():
+            raise AssertionError("transport: the loop thread did not stop")
+
+
+def phase_transport(torch):
+    """The datagram transport in front of two live granite slices
+    (build_live_transport): 4 decode streams and 1 prefill stream, each
+    over a SimLink with its own seeded chaos plan; session 1's home slice
+    failed mid-stream; then one decode stream over UDP on loopback."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Category
+    from repro_torch.ingest import CameraSource, LinkPlan, SimLink, TransportSource
+    from repro_torch.kernels import ops
+
+    cfg = get_config(MID)
+    names = ("slice0", "slice1")
+    cluster, slices, _, deadline, gateway, transport, binding = granite_cluster(
+        torch, names, transport=True, record_payloads=True, udp=True)
+    if cluster.rehome_owner is not transport or binding.addr[0] != "127.0.0.1":
+        raise AssertionError("transport: server not the rehome owner, or not on loopback")
+    loop = cluster.loop
+    period, frames = deadline / 2, 12
+    deliveries = []
+    deliver = transport._deliver
+
+    def spy(ts, seq, payload, _deliver=deliver):
+        deliveries.append((loop.now, ts.sid, seq))
+        return _deliver(ts, seq, payload)
+
+    transport._deliver = spy
+    clients, sources, links = [], [], []
+    for i in range(5):
+        decode = i < 4
+        link = SimLink(loop, transport.datagram,
+                       plan=LinkPlan.from_seed(LINK_SEED + i, frames * 4, **CHAOS))
+        src = CameraSource(period=period, n_frames=frames,
+                           payload_shape=() if decode else (PREFILL_SEQ,),
+                           vocab=cfg.vocab_size, seed=500 + i)
+        shape = (DECODE_SEQ[MID],) if decode else (PREFILL_SEQ,)
+        client = TransportSource(src, Category(MID, shape), deadline, link)
+        if not client.start(transport):
+            raise AssertionError(f"transport: stream {i} refused")
+        clients.append(client)
+        sources.append(src)
+        links.append(link)
+    victim = transport.sessions[1]
+    home = victim.session.slice_name
+    fail_at = loop.now + 4.2 * period
+    state = {}
+
+    def fail():
+        state["t"] = loop.now
+        state["victims"] = [rid for rid, n in cluster.placement.items() if n == home]
+        state["parked"] = cluster.fail_slice(home)
+        state["dead_stats"] = dict(slices[home].engine.stats)
+
+    loop.schedule(fail_at, fail, priority=0)
+    ops.reset_launch_counts()
+    cluster.run(until=loop.now + frames * period + 4 * deadline)
+    transport.finalize_all()
+    cluster.run(until=loop.now + deadline)
+    torch.cuda.synchronize()
+    used = check_launches(ops, "transport")
+    dead_engine = slices[home].engine
+    if dict(dead_engine.stats) != state["dead_stats"]:
+        raise AssertionError("transport: the failed slice's engine moved after the failure")
+    for i, (client, src) in enumerate(zip(clients, sources)):
+        ts = transport.sessions[i + 1]
+        if ts.delivered_log != sorted(set(ts.delivered_log)):
+            raise AssertionError(f"transport: session {i + 1} delivered out of order")
+        for seq, payload in ts.delivered_payloads.items():
+            if not np.array_equal(payload, src.payload(seq)):
+                raise AssertionError(f"transport: session {i + 1} frame {seq} differs")
+        if not ts.wire_conserved():
+            raise AssertionError(f"transport: session {i + 1} wire not conserved: "
+                                 f"{transport.status()['sessions'][str(i + 1)]['wire']}")
+    if victim.rehomes < 1 or victim.session.slice_name == home:
+        raise AssertionError("transport: the displaced session never re-homed")
+    post = [(t, seq) for t, sid, seq in deliveries if sid == 1 and t >= state["t"]]
+    if not post or not any(np.asarray(victim.delivered_payloads[seq]).any() for _, seq in post):
+        raise AssertionError("transport: no real bytes delivered after the failover")
+    agg = check_conserved(cluster, "transport")
+    ledgers = check_accounted(cluster, state["victims"], "transport")
+    check_survivors(slices, home, "transport")
+    check_dead_engine(dead_engine, "transport")
+    counts = transport_counts(transport, clients)
+    rehome_ms = (post[0][0] - state["t"]) * 1e3
+    chaos = [(l.sends, l.dropped, l.duplicated, l.reordered, l.delayed) for l in links]
+    summary = cluster_summary(cluster, slices)
+    summary["sessions"] = {
+        sid: dict(slice=ts.session.slice_name, delivered=ts.delivered, shed=ts.shed,
+                  late=ts.late_rejected, lost=ts.net_lost + ts.lost_to_slice,
+                  duplicates=ts.duplicates, rehomes=ts.rehomes,
+                  last_shed=ts.session.last_shed_reason)
+        for sid, ts in transport.sessions.items()}
+    summary.update(failed=home, ledgers=ledgers, launches=used, wire=counts, link_faults=chaos,
+                   rehome_to_first_delivery_ms=rehome_ms, parked_at_failure=len(state["parked"]),
+                   retransmits_rehomed=clients[0].retransmits, victim_rehomes=victim.rehomes)
+    log(f"transport: delivered {counts['delivered']}, dropped {counts['dropped']}, lost "
+        f"{counts['lost']}, refused {counts['refused']}, credits {counts['credits']}; "
+        f"fail_slice({home}) to the re-homed session's first delivery {rehome_ms:.3f} ms; "
+        f"misses {agg['missed_frames']}, e2e p99 {agg['e2e_p99'] * 1e3:.3f} ms")
+
+    ops.reset_launch_counts()
+    ts, _ = udp_arm(cluster, transport, binding, deadline)
+    torch.cuda.synchronize()
+    check_conserved(cluster, "transport udp")
+    check_survivors(slices, home, "transport udp")
+    summary["udp"] = dict(addr=list(binding.addr), delivered=ts.delivered,
+                          log=ts.delivered_log, slice=ts.session.slice_name,
+                          launches=ops.launch_counts())
+    summary["peak_mem_bytes"] = close_cluster(torch, cluster, slices)
+    log("transport: " + json.dumps(summary, sort_keys=True))
+
+
+def attention_at_mixtral_shapes(torch):
+    """Both attention kernels at mixtral-8x7b's swa shapes (32 query heads
+    over 8 kv heads, head dim 128, window 4096) against their plain
+    versions: prefill at the served buckets, decode over the served
+    2048-slot ring with -1 sentinels and a dead row."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    h, kv, d, window = 32, 8, 128, 4096
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for b in (1, 8):
+            q = torch.randn((b, PREFILL_SEQ, h, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
+            got = fk.flash_attention(q, k, v, causal=True, window=window)
+            want = fk.flash_attention_plain(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            err = assert_close(f"flash mixtral B={b} {dtype_name}", got, want, TOL[dtype_name])
+            log(f"flash {dtype_name} B={b} S={PREFILL_SEQ} H={h} KV={kv} D={d} causal "
+                f"window={window}: max_abs_err={err:.3e}")
+        q, ck, cv, cur, pos, valid, act = decode_inputs(
+            torch, 8, 2048, h, kv, d, dtype, gen, ring=True,
+            cursors=[2047, 3000, 2100, 4095, 2500, 5000, 2048, 9000],
+            active=[1, 1, 1, 1, 0, 1, 1, 1])
+        got = dk.decode_attention(q, ck, cv, cur, pos, valid, act, window=window)
+        want = dk.decode_attention_plain(q, ck, cv, cur, pos, valid, act, window=window)
+        torch.cuda.synchronize()
+        err = assert_close(f"decode mixtral ring {dtype_name}", got, want, TOL[dtype_name])
+        if bool(got[~act].float().abs().max() != 0):
+            raise AssertionError("decode mixtral ring: a dead row is not exact 0")
+        log(f"decode {dtype_name} B=8 S=2048 H={h} KV={kv} D={d} [ring, -1 sentinels, window "
+            f"{window}, a dead row]: max_abs_err={err:.3e}")
+
+
+def moe_drops(torch, engine, mid, seq):
+    """Token-expert pairs dropped past capacity, summed over the MoE
+    layers, in one decode step of every arena row (prefix mode, on the
+    arena the served streams left) and in one batch-8 prefill, of zero
+    frames as profiled and of seeded random tokens; run eagerly, outside
+    the step graph."""
+    from repro_torch.models import moe
+
+    real = moe.dispatch_plan
+    counted = []
+
+    def spy(*args, **kw):
+        plan = real(*args, **kw)
+        counted.append((int((~plan.keep).sum()), int(plan.keep.numel()), plan.capacity))
+        return plan
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    vocab = engine.configs[mid].vocab_size
+    model, params = engine.models[mid], engine.params[mid]
+    out = {}
+    moe.dispatch_plan = spy
+    try:
+        cur, active = engine._prefix_mode_inputs(mid, seq, engine.max_slots, "moe_drops")
+        engine._decode_body(mid, seq)(torch.zeros_like(cur), cur, active)
+        out["decode_step"] = counted[:]
+        for label, toks in (
+                ("prefill_b8_zero", torch.zeros((8, PREFILL_SEQ), dtype=torch.long,
+                                                device="cuda")),
+                ("prefill_b8_random", torch.randint(0, vocab, (8, PREFILL_SEQ), generator=gen,
+                                                    device="cuda"))):
+            counted.clear()
+            with torch.no_grad():
+                model.forward(params, toks)
+            out[label] = counted[:]
+    finally:
+        moe.dispatch_plan = real
+    return {k: dict(dropped=sum(c[0] for c in v), pairs=sum(c[1] for c in v),
+                    capacity=v[0][2], layers=len(v)) for k, v in out.items()}
+
+
+def phase_serve_moe(torch):
+    """mixtral-8x7b at full width, MOE_LAYERS deep: numerics (2 layers,
+    float32, kernel path against the dense path and the dense MoE oracle,
+    decode against forward), the attention kernels at its head shapes,
+    the decode step's graph (replay against eager, an 8-step chunk
+    against 8 replays, bit for bit), then served by DeepRT."""
+    log(f"mixtral-8x7b depth cut: {MOE_LAYERS} of 32 layers (full width); device memory "
+        f"allocated before the phase: {torch.cuda.memory_allocated()} bytes")
+    phase_model(torch, MIXTRAL, 2, moe_capacity_factor=4.0)
+    attention_at_mixtral_shapes(torch)
+    phase_graphs(torch, MIXTRAL, DECODE_SEQ[MID], n_layers=MOE_LAYERS)
+    seq = DECODE_SEQ[MID]
+    served = phase_serve(
+        torch, {MIXTRAL: seq}, {"decode": 4, "prefill": 1}, frames=8, deadline_factor=6.0,
+        overrides={MIXTRAL: dict(n_layers=MOE_LAYERS)},
+        inspect=lambda engine: dict(
+            weights_bytes=sum(t.numel() * t.element_size()
+                              for t in _leaves(engine.params[MIXTRAL])),
+            arena_bytes=engine.arena_nbytes(MIXTRAL, seq),
+            drops=moe_drops(torch, engine, MIXTRAL, seq)))
+    log(f"serve_moe: weights {served['weights_bytes'] / 1e9:.3f} GB, arena "
+        f"{served['arena_bytes'] / 1e9:.3f} GB, peak {served['peak_mem_bytes'] / 1e9:.3f} GB; "
+        f"WCETs {json.dumps(served['wcet'][MIXTRAL])}; dropped token-expert pairs "
+        f"{json.dumps(served['drops'])}")
+    log("served moe: " + json.dumps(served, sort_keys=True))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1552,6 +1879,10 @@ def main() -> int:
         phase_faults(torch)
     with Phase("gateway"):
         phase_gateway(torch)
+    with Phase("transport"):
+        phase_transport(torch)
+    with Phase("serve_moe"):
+        phase_serve_moe(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")

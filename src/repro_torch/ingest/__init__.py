@@ -1,7 +1,6 @@
 """Streaming ingestion gateway: real frame/token ingestion in front of
-the DeepRT serving stack (sources -> sessions -> staging rings). The
-datagram transport in front of the sessions is not ported yet
-(ROADMAP.md)."""
+the DeepRT serving stack (sources -> sessions -> transport -> staging
+rings)."""
 from repro_torch.ingest.session import IngestGateway, ShedPolicy, StreamSession
 from repro_torch.ingest.sources import (
     BurstSource,
@@ -12,6 +11,23 @@ from repro_torch.ingest.sources import (
     TraceSource,
 )
 from repro_torch.ingest.staging import StagingRing, check_payload_dtype
+from repro_torch.ingest.transport import (
+    DROP,
+    DUPLICATE,
+    HELLO_RETRY,
+    LINK_DELAY,
+    LINK_FAULT_KINDS,
+    MALFORMED,
+    REORDER,
+    LinkFault,
+    LinkPlan,
+    SimLink,
+    TransportServer,
+    TransportSession,
+    TransportSource,
+    UdpClientLink,
+    UdpServerBinding,
+)
 
 __all__ = [
     "IngestGateway",
@@ -25,4 +41,19 @@ __all__ = [
     "TraceSource",
     "StagingRing",
     "check_payload_dtype",
+    "LinkFault",
+    "LinkPlan",
+    "SimLink",
+    "TransportServer",
+    "TransportSession",
+    "TransportSource",
+    "UdpClientLink",
+    "UdpServerBinding",
+    "DROP",
+    "DUPLICATE",
+    "HELLO_RETRY",
+    "MALFORMED",
+    "REORDER",
+    "LINK_DELAY",
+    "LINK_FAULT_KINDS",
 ]

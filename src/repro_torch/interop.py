@@ -4,8 +4,9 @@
 ``repro``'s ``model.init(key)`` returns, with every leaf already turned
 into a numpy array by the caller (this module never imports JAX), and
 returns the port's tree: the same nested dicts and lists, the same
-stacked superblock leaves with their leading ``n_super`` axis, as
-tensors. numpy has no bfloat16 of its own (JAX's bf16 leaves arrive as
+stacked superblock leaves with their leading ``n_super`` axis (a MoE
+layer's (d, E) router, its stacked (E, d, f) / (E, f, d) experts and
+llama4's shared MLP among them), as tensors. numpy has no bfloat16 of its own (JAX's bf16 leaves arrive as
 an extension dtype named ``bfloat16``), so those leaves travel through
 float32 — exact, since every bf16 value is a float32 value — and are
 cast back. ``params_to_numpy`` goes the other way, bf16 leaves coming

@@ -16,7 +16,7 @@ from repro_torch.configs.registry import tiny
 from repro_torch.core import TraceSpec, generate_trace
 from repro_torch.serving.batcher_bridge import build_live_scheduler
 
-PORTED_ARCHS = ("granite-3-2b", "rwkv6-1.6b", "recurrentgemma-9b")
+PORTED_ARCHS = ("granite-3-2b", "rwkv6-1.6b", "recurrentgemma-9b", "mixtral-8x7b")
 
 
 def main() -> None:

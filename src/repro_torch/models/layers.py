@@ -54,15 +54,17 @@ def tree_leaves(tree: Any) -> list:
 def fan_in(p: Param) -> int:
     """The input width of one layer's leaf, for its fan-in scaled init.
 
-    A stacked leaf's leading ``layer`` axis is not an input axis. ``x @ W``
+    A stacked leaf's leading ``layer`` axis is not an input axis, nor is
+    a stacked expert leaf's ``expert`` axis. ``x @ W``
     contracts W's first axis, except an output projection
     (heads, head_dim, embed), which contracts all but its last. (The
     reference reads dim 1 of every 3-D leaf and dim 0 otherwise, so a
     stacked (n_super, d, heads, head_dim) leaf gets std 1/sqrt(n_super).)
     """
     shape, axes = p.shape, p.axes
-    if axes and axes[0] == "layer":
-        shape, axes = shape[1:], axes[1:]
+    for lead in ("layer", "expert"):
+        if axes and axes[0] == lead:
+            shape, axes = shape[1:], axes[1:]
     if len(shape) >= 3 and axes[-1] == "embed":
         return math.prod(shape[:-1])
     return max(shape[0], 1)

@@ -14,9 +14,10 @@ cache, in place).
 
 Block kinds: ``attn`` (global attention), ``swa`` (sliding-window
 attention over a ring cache), ``rglru`` (Griffin recurrent block) and
-``rwkv`` (RWKV-6 time-mix with its channel-mix as the FFN), with a dense
-FFN. MoE FFNs and encoder-decoder models raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+``rwkv`` (RWKV-6 time-mix with its channel-mix as the FFN). An ``attn``
+or ``swa`` block's FFN is dense, or a mixture of experts
+(``models/moe.py``) when the config has experts. Encoder-decoder models
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from repro_torch.models.layers import (
     norm_spec,
     unembed,
 )
+from repro_torch.models.moe import apply_moe, apply_moe_dense_reference, moe_spec
 from repro_torch.models.recurrent import (
     griffin_block,
     griffin_block_spec,
@@ -62,8 +64,6 @@ KINDS = ("attn", "swa", "rglru", "rwkv")
 def _require_ported(cfg: ModelConfig, kind: str) -> None:
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind}")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP.md: MoE)")
     if cfg.encdec:
         raise NotImplementedError(
             "encoder-decoder models are not ported yet (ROADMAP.md: encdec/mrope)"
@@ -73,6 +73,10 @@ def _require_ported(cfg: ModelConfig, kind: str) -> None:
 # ---------------------------------------------------------------------------
 # Param specs
 # ---------------------------------------------------------------------------
+
+
+def _is_moe_block(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.is_moe and kind in ("attn", "swa")
 
 
 def block_spec(cfg: ModelConfig, kind: str) -> Dict:
@@ -90,6 +94,8 @@ def block_spec(cfg: ModelConfig, kind: str) -> Dict:
     spec["norm2"] = norm_spec(d, cfg.norm)
     if kind == "rwkv":
         spec["ffn"] = rwkv6_channelmix_spec(d, cfg.d_ff)
+    elif _is_moe_block(cfg, kind):
+        spec["ffn"] = moe_spec(d, cfg.d_ff, cfg.n_experts, cfg.activation, cfg.shared_expert)
     else:
         spec["ffn"] = mlp_spec(d, cfg.d_ff, cfg.activation)
     return spec
@@ -129,8 +135,8 @@ def _apply_block_full(
     x: torch.Tensor,
     positions: torch.Tensor,
     collect: bool,
-) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x_out, cache_contrib or None)."""
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict]]:
+    """Returns (x_out, MoE aux loss or None, cache_contrib or None)."""
     h = apply_norm(x, p["norm1"], cfg.norm)
     contrib = None
     if kind in ("attn", "swa"):
@@ -148,12 +154,18 @@ def _apply_block_full(
         y, contrib = rwkv6_timemix(p["mixer"], h, cfg.n_heads, impl=cfg.impl)
     x = x + y
     h2 = apply_norm(x, p["norm2"], cfg.norm)
+    aux = None
     if kind == "rwkv":
         f, chan_state = rwkv6_channelmix(p["ffn"], h2)
         contrib = dict(contrib, channel=chan_state)
+    elif _is_moe_block(cfg, kind) and cfg.moe_dense:
+        f = apply_moe_dense_reference(p["ffn"], h2, top_k=cfg.top_k, activation=cfg.activation)
+    elif _is_moe_block(cfg, kind):
+        f, aux = apply_moe(p["ffn"], h2, top_k=cfg.top_k, activation=cfg.activation,
+                           capacity_factor=cfg.moe_capacity_factor)
     else:
         f = apply_mlp(h2, p["ffn"], cfg.activation)
-    return x + f, contrib if collect else None
+    return x + f, aux, contrib if collect else None
 
 
 def _apply_block_decode(
@@ -204,6 +216,11 @@ def _apply_block_decode(
     if kind == "rwkv":
         f, chan = rwkv6_channelmix(p["ffn"], h2, state=cache["channel"])
         cache["channel"].copy_(chan)
+    elif _is_moe_block(cfg, kind):
+        # Decode: a tiny token count; the reference widens capacity to
+        # avoid drops (and ignores ``moe_dense``) here.
+        f, _ = apply_moe(p["ffn"], h2, top_k=cfg.top_k, activation=cfg.activation,
+                         capacity_factor=2.0)
     else:
         f = apply_mlp(h2, p["ffn"], cfg.activation)
     return x + f
@@ -324,14 +341,17 @@ class Transformer:
         self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) integer; positions: (B, S). Returns (logits f32,
-        aux) — aux is 0 (MoE is not ported)."""
+        aux): aux sums the MoE layers' load-balancing losses (0 without
+        experts)."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         x = self._embed(params, tokens)
-        for kind, p, _ in self._layers(params):
-            x, _ = _apply_block_full(self.cfg, kind, p, x, positions, collect=False)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for kind, p, _ in self._layers(params):
+            x, a, _ = _apply_block_full(self.cfg, kind, p, x, positions, collect=False)
+            if a is not None:
+                aux = aux + a
         return self._logits(params, x), aux
 
     # ----- decode ----------------------------------------------------------
@@ -377,6 +397,6 @@ class Transformer:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         x = self._embed(params, tokens)
         for kind, p, where in self._layers(params):
-            x, contrib = _apply_block_full(self.cfg, kind, p, x, positions, True)
+            x, _, contrib = _apply_block_full(self.cfg, kind, p, x, positions, True)
             _fill_from_prefill(kind, self._cache_view(cache, where), contrib, positions)
         return self._logits(params, x[:, -1:])[:, 0], cache

@@ -30,8 +30,10 @@ arena-row leases, and failover re-admission (``core/cluster.py``). On
 one card the slices' engines launch on the same CUDA stream, so a slice's
 profiled WCETs stay what they measured alone.
 
-Not ported yet (ROADMAP.md): ``build_live_transport`` (the datagram
-transport in front of the ingest gateway).
+``build_live_transport`` puts the ingest gateway and the datagram
+transport (``ingest/transport.py``) in front of such a cluster: the
+transport server is the cluster's rehome owner, so a failed slice's
+sessions continue on a survivor with their buffered bytes.
 """
 from __future__ import annotations
 
@@ -540,5 +542,70 @@ def _wrap_faulty(device: AsyncDevice, plan: FaultPlan) -> FaultyDevice:
     return FaultyDevice(device, plan)
 
 
-def _wrap_faulty(device: AsyncDevice, plan: FaultPlan) -> FaultyDevice:
-    return FaultyDevice(device, plan)
+def build_live_transport(
+    configs: Dict[str, ModelConfig],
+    categories: Iterable[Tuple[str, Tuple[int, ...], str]],
+    slice_names: Sequence[str] = ("slice0", "slice1"),
+    batch_sizes=(1, 2, 4, 8),
+    utilization_bounds: Optional[Dict[str, float]] = None,
+    profile_runs: int = 5,
+    nonrt_cap: int = NONRT_BATCH_CAP,
+    watchdog: Optional[WatchdogConfig] = None,
+    fault_plans: Optional[Dict[str, FaultPlan]] = None,
+    chunk_depth: int = 1,
+    tracer=None,
+    shedding: bool = True,
+    udp: bool = False,
+    host: str = "127.0.0.1",
+    port: int = 0,
+    device="cuda",
+    params: Optional[Dict[str, Any]] = None,
+    **transport_kwargs,
+):
+    """``build_live_cluster`` with the network front door attached.
+
+    Stacks the ingest gateway and the transport server over a live
+    cluster — the full networked serving path on one WallClock: wire
+    datagrams -> reassembly (reorder window, dedup, late rejection) ->
+    gateway shedding/backpressure -> placement/admission/leases -> EDF.
+    The transport server registers as the cluster's rehome owner, so a
+    ``fail_slice`` re-homes live sessions with their buffered bytes.
+
+    ``udp=True`` additionally binds a real UDP socket front end on
+    ``host``:``port`` (started; callers own ``binding.close()``).
+    ``device`` and ``params`` go to ``build_live_cluster``.
+    ``transport_kwargs`` forward to
+    :class:`~repro_torch.ingest.transport.TransportServer` (flow_control,
+    reorder_window, record_payloads, ...).
+
+    Returns ``(cluster, slices, gateway, transport, binding)`` with
+    ``binding=None`` unless ``udp``.
+    """
+    # Imported here: serving must stay importable without dragging the
+    # ingest package into every bridge user (and vice versa).
+    from repro_torch.ingest.session import IngestGateway
+    from repro_torch.ingest.transport import TransportServer, UdpServerBinding
+
+    cluster, slices = build_live_cluster(
+        configs, categories,
+        slice_names=slice_names,
+        batch_sizes=batch_sizes,
+        utilization_bounds=utilization_bounds,
+        profile_runs=profile_runs,
+        nonrt_cap=nonrt_cap,
+        watchdog=watchdog,
+        fault_plans=fault_plans,
+        chunk_depth=chunk_depth,
+        tracer=tracer,
+        device=device,
+        params=params,
+    )
+    gateway = IngestGateway(cluster, shedding=shedding)
+    transport = TransportServer(gateway, **transport_kwargs)
+    if tracer is not None:
+        gateway.tracer = tracer
+        transport.tracer = tracer
+    binding = None
+    if udp:
+        binding = UdpServerBinding(transport, host=host, port=port).start()
+    return cluster, slices, gateway, transport, binding

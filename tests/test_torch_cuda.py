@@ -393,8 +393,11 @@ def test_recurrent_engine_kernel_path_matches_dense_on_card(cuda, arch, kw):
 # decode steps and chunks as CUDA graphs
 # ---------------------------------------------------------------------------
 # One model per block kind: granite (attn), recurrentgemma at 5 layers
-# (rglru and an swa ring, with a tail after it), rwkv6 (rwkv).
-GRAPH_ARCHS = {"granite-3-2b": {}, "recurrentgemma-9b": {"n_layers": 5}, "rwkv6-1.6b": {}}
+# (rglru and an swa ring, with a tail after it), rwkv6 (rwkv); and the
+# MoE FFNs: mixtral (swa, top-2 of 8 experts, so 8 arena rows overfill
+# an expert's capacity of 4) and llama4 (attn, top-1 plus a shared expert).
+GRAPH_ARCHS = {"granite-3-2b": {}, "recurrentgemma-9b": {"n_layers": 5}, "rwkv6-1.6b": {},
+               "mixtral-8x7b": {"n_experts": 8}, "llama4-maverick-400b-a17b": {}}
 GSEQ = 24  # recurrentgemma's 16-slot ring wraps for rows near the end
 
 
@@ -590,3 +593,60 @@ def test_chunk_is_k_step_replays_one_capture_per_key(cuda, arch):
         eng.dispatch(arch, (GSEQ,), 3, "decode", slots=slots).wait()
         assert torch.equal(out, kept)
     assert eng.stats["decode_compiles"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 2, 3])
+def test_moe_zero_router_ties_and_dispatch_on_card(cuda, top_k):
+    """A zero router makes every probability 1/E: the card takes experts
+    0..k-1 as the CPU (and jax.lax.top_k) does. The MoE FFN on the card
+    against the same call on the CPU, float32, at a capacity that drops
+    tokens, with identical keep/slot decisions."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator().manual_seed(top_k)
+    d, f, e = 32, 48, 8
+    p = {"router": torch.randn(d, e, generator=gen) * 3.0,
+         "gate": torch.randn(e, d, f, generator=gen) / d ** 0.5,
+         "up": torch.randn(e, d, f, generator=gen) / d ** 0.5,
+         "down": torch.randn(e, f, d, generator=gen) / f ** 0.5}
+    x = torch.randn(3, 16, d, generator=gen) + torch.randn(d, generator=gen)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    plan_cpu = moe.dispatch_plan(p["router"], x.reshape(-1, d), top_k=top_k)
+    plan_gpu = moe.dispatch_plan(pc["router"], x.reshape(-1, d).to(cuda), top_k=top_k)
+    for name in ("top_e", "keep", "slot"):
+        assert torch.equal(getattr(plan_gpu, name).cpu(), getattr(plan_cpu, name))
+    assert bool((~plan_cpu.keep).any())
+    want, aux = moe.apply_moe(p, x, top_k=top_k, activation="swiglu")
+    got, aux_g = moe.apply_moe(pc, x.to(cuda), top_k=top_k, activation="swiglu")
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(aux_g.cpu(), aux, atol=1e-6, rtol=1e-6)
+    pc["router"].zero_()
+    zero = moe.dispatch_plan(pc["router"], x.reshape(-1, d).to(cuda), top_k=top_k)
+    assert (zero.top_e.cpu() == torch.arange(top_k)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b"])
+def test_moe_engine_kernel_path_matches_dense_on_card(cuda, arch):
+    """Tiny MoE models in the engine on the card: prefill tokens and arena
+    decode logits on the kernel path against impl="dense" on the same
+    parameters, both attention kernels launched."""
+    cfg = tiny(arch)
+    eng = InferenceEngine({arch: cfg}, max_slots=4, device=cuda)
+    dense = InferenceEngine({arch: dataclasses.replace(cfg, impl="dense")},
+                            max_slots=4, device=cuda, params=eng.params)
+    toks = np.random.default_rng(2).integers(0, 256, size=(3, 24)).astype(np.int32)
+    before = ops.launch_counts()
+    a = eng.dispatch(arch, (16,), 3, "prefill", payload=toks[:, :16]).wait()
+    b = dense.dispatch(arch, (16,), 3, "prefill", payload=toks[:, :16]).wait()
+    assert torch.equal(a[:3], b[:3])
+    slots = eng.alloc_slots(arch, 32, 3)
+    assert dense.alloc_slots(arch, 32, 3) == slots
+    for step in range(20):
+        payload = {s: int(t) for s, t in zip(slots, toks[:, step])}
+        la = eng.dispatch(arch, (32,), 3, "decode", slots=slots, payload=payload).wait()
+        lb = dense.dispatch(arch, (32,), 3, "decode", slots=slots, payload=payload).wait()
+        torch.testing.assert_close(la[:3], lb[:3], atol=2e-3, rtol=2e-3)
+    used = {n: ops.launch_counts()[n] - before[n] for n in before}
+    assert used["decode_attention"] > 0 and used["flash_attention"] > 0
