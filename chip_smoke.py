@@ -108,6 +108,31 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              decode captures while serving, both attention kernels
              launched; logs weights, peak memory, WCETs and the
              token-expert pairs dropped past capacity.
+14. encdec — whisper-large-v3 through the model API (the reference's
+             engine does not serve it): both attention kernels at its
+             shapes against their plain versions (flash non-causal over
+             1500 frames, causal, and cross at S_kv = 1500; decode over
+             the 448-slot self cache and, causal=False, the 1500-frame
+             cross cache), timed with SDPA; 2 + 2 layers in float32
+             (kernel path against impl="dense", decode against forward,
+             2e-3); then 32 + 32 layers in bf16, 8 rows (one dead), 1500
+             seeded frame embeddings: encode_for_decode, 32 greedy decode
+             steps, a teacher-forced forward over the same tokens (decode
+             within BF16_LOGIT_TOL_STD of the logits' std, argmax up to
+             near-ties on live rows); the parameters saved through the
+             port's CheckpointManager (async) and restored onto the card,
+             torch.equal per leaf; logs the save stall, write and restore
+             times and both kernels' launches, by shape.
+15. mrope — qwen2-vl-72b through the model API, MROPE_LAYERS (24) of its
+             80 layers at full width: flash on Qwen2-VL position ids (an
+             image's 256 tokens share one temporal position) and decode at
+             its heads against their plain versions, timed with SDPA (an
+             explicit mask for the position-valued case); 2 layers in
+             float32 (kernel against dense, 2e-3); then bf16: a batch-8 x
+             512 forward on vision positions, kernel against dense; prefill
+             on them and 32 decode steps at the default mrope_position,
+             kernel against dense; on text-only positions, decode against
+             the teacher-forced forward.
 
 Each serving phase sets the kernel launch counts to 0 before it serves
 and reads them after, and fails unless every kernel of its path
@@ -116,10 +141,14 @@ launched.
 Before the last line it prints the nvidia-smi line and one JSON object
 with a row per kernel (`previous_ms`: the previous design's time, null
 for rglru_scan; the wkv6 row also has `b1_*` and `decode_*` times and
-bounds at (1, 512) and (8, 1)); the last line is the device record.
+bounds at (1, 512) and (8, 1); the two attention rows carry `shapes`,
+a record per timed whisper / qwen2-vl shape); the last line is the
+device record.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
 import json
 import math
@@ -137,6 +166,25 @@ MIXTRAL = "mixtral-8x7b"
 # card's 80 GB. It is served 16 of its 32 layers deep (23.5B parameters,
 # about 47 GB), every width as published.
 MOE_LAYERS = 16
+WHISPER = "whisper-large-v3"
+QWEN_VL = "qwen2-vl-72b"
+# qwen2-vl-72b at full width is 72.7B parameters, 145 GB in bf16: past the
+# card's 80 GB. It runs 24 of its 80 layers (about 23.6B parameters,
+# 47 GB), every width as published.
+MROPE_LAYERS = 24
+WHISPER_FRAMES = 1500  # the encoder's frames for Whisper's 30 s window
+WHISPER_DEC_SLOTS = 448  # Whisper's decoder context
+WHISPER_STEPS = 32
+MROPE_STEPS = 32
+QWEN_DECODE_SEQ = 2048
+IMAGE_GRID = (16, 16)  # the image's tokens in the LLM's grid (Qwen2-VL)
+# bf16 logits of two paths through a full-depth model (decode against the
+# teacher-forced forward, the kernel path against the dense path) differ
+# by the rounding of every layer's output; they must agree elementwise
+# within this fraction of the forward logits' standard deviation (a wrong
+# mask or rotation moves logits by about one). In float32, at 2 layers,
+# the same paths agree at 2e-3.
+BF16_LOGIT_TOL_STD = 0.25
 # Decode seq per model in the multi-tenant serve: recurrentgemma's runs
 # past its 2048-slot ring, as a user of a 2048-window model would. Its
 # profiled decode step attends to a full ring (the engine presents one
@@ -1804,6 +1852,620 @@ def phase_serve_moe(torch):
     log("served moe: " + json.dumps(served, sort_keys=True))
 
 
+# ---------------------------------------------------------------------------
+# phases 14-15: whisper-large-v3 (encoder-decoder) and qwen2-vl-72b (M-RoPE)
+# ---------------------------------------------------------------------------
+
+
+def qwen_vl_positions(torch, b, s, prefixes, device="cuda"):
+    """Qwen2-VL's M-RoPE position ids (3, B, S) int32 for rows of text, one
+    image, text (Qwen2-VL's `get_rope_index`): row r's ``prefixes[r]`` text
+    tokens sit at t = h = w = 0 .. p-1; its gh x gw image tokens all at
+    temporal position p, at heights p + i and widths p + j; the text after
+    it from p + max(gh, gw) on all three streams. The temporal stream is
+    non-decreasing, and an image's tokens share one temporal position."""
+    gh, gw = IMAGE_GRID
+    n_img = gh * gw
+    pos = torch.empty((3, b, s), dtype=torch.int32)
+    for r, p in enumerate(prefixes):
+        pos[:, r, :p] = torch.arange(p)
+        img = slice(p, p + n_img)
+        pos[0, r, img] = p
+        pos[1, r, img] = p + torch.arange(gh).repeat_interleave(gw)
+        pos[2, r, img] = p + torch.arange(gw).repeat(gh)
+        pos[:, r, p + n_img:] = p + max(gh, gw) + torch.arange(s - p - n_img)
+    return pos.to(device)
+
+
+def text_positions(torch, b, s, device="cuda"):
+    """Text-only M-RoPE positions: arange on all three streams."""
+    return torch.arange(s, dtype=torch.int32, device=device).expand(3, b, s).contiguous()
+
+
+def time_case(label, run_k, run_p, run_lib, inputs, lib_inputs, nbytes, flops, err):
+    """Device ms of the kernel and of the library call (CUDA-graph replays
+    over ``inputs``), the plain version's eager ms, and the bound; logged
+    and returned as a record."""
+    ms = device_ms(run_k, inputs)
+    plain_ms = time_ms(run_p, inputs, iters=3, warmup=1)
+    library_ms = device_ms(run_lib, lib_inputs)
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {flops} flops)")
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def copies(inp, per_copy):
+    """``inp`` and enough clones of its tensors that a cycle exceeds L2."""
+    return [inp] + [tuple(t.clone() if hasattr(t, "clone") else t for t in inp)
+                    for _ in range(n_copies(per_copy) - 1)]
+
+
+def flash_case(torch, gen, dtype, b, s, skv, h, kv, d, causal, pos=None):
+    """One flash check against the plain version; returns (inputs, err)."""
+    from repro_torch.kernels import flash_attention as fk
+
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, skv, kv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, skv, kv, d), generator=gen, device="cuda").to(dtype)
+    kw = {} if pos is None else dict(q_pos=pos, kv_pos=pos)
+    got = fk.flash_attention(q, k, v, causal=causal, **kw)
+    want = fk.flash_attention_plain(q, k, v, causal=causal, **kw)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    err = assert_close(f"flash B={b} S={s} S_kv={skv} H={h} D={d} {name}", got, want,
+                       TOL[name])
+    return (q, k, v), err
+
+
+def attention_at_whisper_shapes(torch, report):
+    """Both attention kernels at whisper-large-v3's shapes (H = KV = 20,
+    D = 64, one query head a kv head): flash non-causal over the encoder's
+    1500 frames, causal over the decoder's tokens and cross at S_kv = 1500
+    (and a ragged case); decode over the 448-slot self cache and, with
+    causal=False, over the 1500-frame cross cache, a dead row in each.
+    Times the four served shapes with SDPA beside them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(1500)
+    h = kv = 20
+    d, t = 64, WHISPER_FRAMES
+    flash_cases = [("encoder", 8, t, t, False), ("decoder self", 8, WHISPER_STEPS,
+                                                  WHISPER_STEPS, True),
+                   ("cross", 8, WHISPER_STEPS, t, False), ("cross ragged", 2, 100, 1437, False)]
+    act = [1, 1, 1, 1, 1, 1, 1, 0]
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for label, b, s, skv, causal in flash_cases:
+            _, err = flash_case(torch, gen, dtype, b, s, skv, h, kv, d, causal)
+            log(f"flash whisper {label} {dtype_name} B={b} S={s} S_kv={skv} H={h} KV={kv} "
+                f"D={d} causal={causal}: max_abs_err={err:.3e}")
+        q, ck, cv, cur, pos, valid, a = decode_inputs(
+            torch, 8, WHISPER_DEC_SLOTS, h, kv, d, dtype, gen, active=act,
+            cursors=[447, 300, 31, 5, 0, 200, 100, 50])
+        got = dk.decode_attention(q, ck, cv, cur, pos, valid, a)
+        want = dk.decode_attention_plain(q, ck, cv, cur, pos, valid, a)
+        torch.cuda.synchronize()
+        err = assert_close(f"decode whisper self {dtype_name}", got, want, TOL[dtype_name])
+        log(f"decode whisper self {dtype_name} B=8 S={WHISPER_DEC_SLOTS} H={h} KV={kv} D={d} "
+            f"[cursors spread, a dead row]: max_abs_err={err:.3e}")
+        # Cross: every encoder frame live whatever the cursor (causal=False).
+        q, ck, cv, cur, _, _, a = decode_inputs(
+            torch, 8, t, h, kv, d, dtype, gen, active=act, cursors=[0, 5, 31, 200, 447, 3, 1, 9])
+        pos = torch.arange(t, dtype=torch.int32, device="cuda").expand(8, t).contiguous()
+        valid = a[:, None].expand(8, t).contiguous()
+        got = dk.decode_attention(q, ck, cv, cur, pos, valid, a, causal=False)
+        want = dk.decode_attention_plain(q, ck, cv, cur, pos, valid, a, causal=False)
+        causal_out = dk.decode_attention(q, ck, cv, cur, pos, valid, a)
+        torch.cuda.synchronize()
+        err = assert_close(f"decode whisper cross {dtype_name}", got, want, TOL[dtype_name])
+        if bool(got[~a].float().abs().max() != 0):
+            raise AssertionError("decode whisper cross: a dead row is not exact 0")
+        gap = (got[a].float() - causal_out[a].float()).abs().max().item()
+        if not gap > 0.1:
+            raise AssertionError("decode whisper cross: causal=False reads like causal=True")
+        log(f"decode whisper cross {dtype_name} B=8 S={t} H={h} KV={kv} D={d} causal=False "
+            f"[cursors below S, a dead row]: max_abs_err={err:.3e} (causal=True differs by "
+            f"{gap:.3e})")
+
+    dtype = torch.bfloat16
+    esz = 2
+    records = report.setdefault("flash_attention", {}).setdefault("shapes", [])
+    for label, b, s, skv, causal in flash_cases[:3]:
+        inp, err = flash_case(torch, gen, dtype, b, s, skv, h, kv, d, causal)
+        q, k, v = inp
+        inputs = copies(inp, (q.numel() + 2 * k.numel()) * esz)
+        lib_inputs = [tuple(x.transpose(1, 2).contiguous() for x in i) for i in inputs]
+        pairs = s * (s + 1) // 2 if causal else s * skv
+        records.append(time_case(
+            f"flash whisper {label} B={b} S={s} S_kv={skv} H={h} D={d} bf16",
+            lambda q_, k_, v_, c=causal: fk.flash_attention(q_, k_, v_, causal=c),
+            lambda q_, k_, v_, c=causal: fk.flash_attention_plain(q_, k_, v_, causal=c),
+            lambda q_, k_, v_, c=causal: F.scaled_dot_product_attention(q_, k_, v_, is_causal=c),
+            inputs, lib_inputs, (2 * q.numel() + 2 * k.numel()) * esz, 4 * b * h * d * pairs,
+            err))
+    records = report.setdefault("decode_attention", {}).setdefault("shapes", [])
+    for label, s, causal in (("self", WHISPER_DEC_SLOTS, True), ("cross", t, False)):
+        base = decode_inputs(torch, 8, s, h, kv, d, dtype, gen, cursors=[s - 1] * 8)
+        q, ck, cv, cur, pos, valid, a = base
+        inputs = copies(base, 2 * ck.numel() * esz)
+        run_k = lambda *x, c=causal: dk.decode_attention(*x, causal=c)
+        run_p = lambda *x, c=causal: dk.decode_attention_plain(*x, causal=c)
+        err = assert_close(f"decode whisper {label} timed", run_k(*base), run_p(*base),
+                           TOL["bfloat16"])
+        lib_inputs = [(i[0].transpose(1, 2).contiguous(), i[1].transpose(1, 2).contiguous(),
+                       i[2].transpose(1, 2).contiguous(), i[5][:, None, None, :])
+                      for i in inputs]
+        n_live = 8 * s  # every slot live
+        records.append(time_case(
+            f"decode whisper {label} B=8 S={s} H={h} KV={kv} D={d} bf16 causal={causal}",
+            run_k, run_p,
+            lambda q_, k_, v_, m_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_),
+            inputs, lib_inputs,
+            q.numel() * esz * 2 + 2 * n_live * kv * d * esz + 8 * 4 + 8 * s * 5,
+            4 * n_live * kv * d, err))
+
+
+def attention_at_qwen_vl_shapes(torch, report):
+    """Both attention kernels at qwen2-vl-72b's shapes (H = 64, KV = 8,
+    D = 128): flash causal over Qwen2-VL position ids (an image's 256
+    tokens share one temporal position, so they attend to each other both
+    ways), at B = 8 x 512 with the image at a different offset per row, a
+    ragged S and B = 1; decode over the 2048-slot cache. Times the
+    position-valued flash (SDPA given the same mask explicitly) and decode."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    h, kv, d = 64, 8, 128
+    prefixes = [0, 17, 64, 100, 128, 200, 240, 253]
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for b, s in ((8, PREFILL_SEQ), (8, 509), (1, PREFILL_SEQ)):
+            pos = qwen_vl_positions(torch, b, s, prefixes[-b:])[0].contiguous()
+            (q, k, v), err = flash_case(torch, gen, dtype, b, s, s, h, kv, d, True, pos)
+            arange = fk.flash_attention(q, k, v, causal=True)
+            gap = (arange.float() - fk.flash_attention(q, k, v, causal=True, q_pos=pos,
+                                                       kv_pos=pos).float()).abs().max().item()
+            if not gap > 0.1:
+                raise AssertionError("flash: position-valued mask reads like arange")
+            log(f"flash qwen2-vl {dtype_name} B={b} S={s} H={h} KV={kv} D={d} causal, "
+                f"M-RoPE temporal positions: max_abs_err={err:.3e} (arange mask differs by "
+                f"{gap:.3e})")
+        q, ck, cv, cur, pos, valid, a = decode_inputs(
+            torch, 8, QWEN_DECODE_SEQ, h, kv, d, dtype, gen, active=[1, 1, 0, 1, 1, 1, 1, 1],
+            cursors=[2047, 1500, 700, 530, 512, 600, 1024, 2000])
+        got = dk.decode_attention(q, ck, cv, cur, pos, valid, a)
+        want = dk.decode_attention_plain(q, ck, cv, cur, pos, valid, a)
+        torch.cuda.synchronize()
+        err = assert_close(f"decode qwen2-vl {dtype_name}", got, want, TOL[dtype_name])
+        log(f"decode qwen2-vl {dtype_name} B=8 S={QWEN_DECODE_SEQ} H={h} KV={kv} D={d} "
+            f"[cursors spread, a dead row]: max_abs_err={err:.3e}")
+
+    dtype, esz, b, s = torch.bfloat16, 2, 8, PREFILL_SEQ
+    pos = qwen_vl_positions(torch, b, s, prefixes)[0].contiguous()
+    (q, k, v), err = flash_case(torch, gen, dtype, b, s, s, h, kv, d, True, pos)
+    inputs = copies((q, k, v, pos), (q.numel() + 2 * k.numel()) * esz)
+    mask = pos[:, None, :] <= pos[:, :, None]  # (B, S query, S key)
+    lib_inputs = [(i[0].transpose(1, 2).contiguous(), i[1].transpose(1, 2).contiguous(),
+                   i[2].transpose(1, 2).contiguous(), mask[:, None]) for i in inputs]
+    pairs = int(mask.sum())
+    rec = time_case(
+        f"flash qwen2-vl B={b} S={s} H={h} KV={kv} D={d} bf16 causal, M-RoPE positions",
+        lambda q_, k_, v_, p_: fk.flash_attention(q_, k_, v_, causal=True, q_pos=p_, kv_pos=p_),
+        lambda q_, k_, v_, p_: fk.flash_attention_plain(q_, k_, v_, causal=True, q_pos=p_,
+                                                        kv_pos=p_),
+        lambda q_, k_, v_, m_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_,
+                                                              enable_gqa=True),
+        inputs, lib_inputs, (2 * q.numel() + 2 * k.numel()) * esz + 2 * pos.numel() * 4,
+        4 * h * d * pairs, err)
+    rec["arange_ms"] = device_ms(lambda q_, k_, v_, p_: fk.flash_attention(q_, k_, v_),
+                                 inputs)
+    log(f"flash qwen2-vl same inputs, arange mask: kernel {rec['arange_ms']:.4f} ms")
+    report.setdefault("flash_attention", {}).setdefault("shapes", []).append(rec)
+    base = decode_inputs(torch, 8, QWEN_DECODE_SEQ, h, kv, d, dtype, gen,
+                         cursors=[QWEN_DECODE_SEQ - 1] * 8)
+    q, ck, cv, cur, pos, valid, a = base
+    inputs = copies(base, 2 * ck.numel() * esz)
+    err = assert_close("decode qwen2-vl timed", dk.decode_attention(*base),
+                       dk.decode_attention_plain(*base), TOL["bfloat16"])
+    lib_inputs = [(i[0].transpose(1, 2).contiguous(), i[1].transpose(1, 2).contiguous(),
+                   i[2].transpose(1, 2).contiguous(), i[5][:, None, None, :]) for i in inputs]
+    n_live = 8 * QWEN_DECODE_SEQ
+    report.setdefault("decode_attention", {}).setdefault("shapes", []).append(time_case(
+        f"decode qwen2-vl B=8 S={QWEN_DECODE_SEQ} H={h} KV={kv} D={d} bf16",
+        lambda *x: dk.decode_attention(*x), lambda *x: dk.decode_attention_plain(*x),
+        lambda q_, k_, v_, m_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_,
+                                                              enable_gqa=True),
+        inputs, lib_inputs,
+        q.numel() * esz * 2 + 2 * n_live * kv * d * esz + 8 * 4 + 8 * QWEN_DECODE_SEQ * 5,
+        4 * n_live * kv * (h // kv) * d, err))
+
+
+@contextlib.contextmanager
+def launches_by_shape():
+    """Count the two attention kernels' launches by shape while the block
+    runs (their wrappers' own counters count them as well)."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    counts = collections.Counter()
+    real = fk.flash_attention, dk.decode_attention
+
+    def flash(q, k, v, **kw):
+        counts[f"flash S={q.shape[1]} S_kv={k.shape[1]} causal={kw.get('causal', True)} "
+               f"positions={kw.get('q_pos') is not None}"] += 1
+        return real[0](q, k, v, **kw)
+
+    def decode(q, cache_k, *args, **kw):
+        counts[f"decode S={cache_k.shape[1]} causal={kw.get('causal', True)}"] += 1
+        return real[1](q, cache_k, *args, **kw)
+
+    fk.flash_attention, dk.decode_attention = flash, decode
+    try:
+        yield counts
+    finally:
+        fk.flash_attention, dk.decode_attention = real
+
+
+def live_rows_close(name, got, want, live, tol):
+    """assert_close on the live rows (dim 0) only; returns the max error."""
+    return assert_close(name, got[live], want[live], tol)
+
+
+def within_std(name, got, want, frac=None):
+    """bf16 logits of two paths: max |got - want| <= ``frac`` (default
+    BF16_LOGIT_TOL_STD) x the standard deviation of ``want``. Returns
+    (max abs error, the tolerance it was held to)."""
+    frac = BF16_LOGIT_TOL_STD if frac is None else frac
+    want = want.float()
+    tol = frac * want.std().item()
+    err = (got.float() - want).abs().max().item()
+    if not bool(got.float().isfinite().all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs err {err:.3e} beyond {tol:.3e} "
+                             f"({frac} x the logits' std)")
+    return err, tol
+
+
+def encdec_numerics(torch):
+    """whisper-large-v3 at full width, 2 + 2 layers, float32, seeded
+    weights and 1500 frames: the kernel path against impl="dense"
+    (forward, and encode_for_decode + decode with a dead row), and decode
+    against the teacher-forced forward, at 2e-3 on live rows."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_for
+
+    cfg = get_config(WHISPER, n_layers=2, n_encoder_layers=2, param_dtype="float32")
+    m_k = model_for(cfg)
+    m_d = model_for(dataclasses.replace(cfg, impl="dense"))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = m_k.init(gen, device="cuda")
+    b, t, s = 2, WHISPER_FRAMES, 33
+    frames = 0.1 * torch.randn((b, t, cfg.d_model), generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    active = torch.tensor([True, False], device="cuda")
+    with torch.no_grad():
+        lk, _ = m_k.forward(params, frames, toks)
+        ld, _ = m_d.forward(params, frames, toks)
+        err = assert_close("whisper x2 forward logits", lk, ld, 2e-3)
+        loss = float(m_k.loss(params, frames, toks))
+        if not math.isfinite(loss):
+            raise AssertionError("whisper x2 loss is not finite")
+        outs = []
+        for m in (m_k, m_d):
+            cache = m.init_cache(b, 64, t, device="cuda")
+            m.encode_for_decode(params, frames, cache)
+            steps = []
+            for i in range(s):
+                cur = torch.full((b,), i, dtype=torch.int32, device="cuda")
+                lg, _ = m.decode_step(params, cache, toks[:, i], cur, active=active)
+                steps.append(lg)
+            outs.append(torch.stack(steps, dim=1))
+        err2 = live_rows_close("whisper x2 decode kernel vs dense", outs[0], outs[1],
+                               active, 2e-3)
+        err3 = live_rows_close("whisper x2 decode vs forward", outs[0], lk, active, 2e-3)
+    log(f"model {WHISPER} 2+2 layers f32 B={b} T={t} S={s}: forward kernel vs dense "
+        f"max_abs_err={err:.3e}, loss {loss:.4f}; decode (a dead row) kernel vs dense "
+        f"{err2:.3e}, decode vs forward {err3:.3e}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def greedy_decode(torch, model, params, cache, first, steps, active, **kw):
+    """``steps`` greedy decode steps from token ``first`` (B,) at cursors 0,
+    1, ...; returns (input tokens (B, steps), logits (B, steps, V))."""
+    b = first.shape[0]
+    toks, logits = [first], []
+    for i in range(steps):
+        cur = torch.full((b,), i, dtype=torch.int32, device="cuda")
+        lg, _ = model.decode_step(params, cache, toks[-1], cur, active=active, **kw)
+        logits.append(lg)
+        toks.append(lg.argmax(-1))
+    return torch.stack(toks[:-1], dim=1), torch.stack(logits, dim=1)
+
+
+def check_argmax(name, got, want, live, tol):
+    """Each live row's argmax of ``got`` is an argmax of ``want`` within
+    ``tol``, and the other way round: argmax equality up to near-ties that
+    the stated tolerance cannot order. Returns (exactly equal, compared)."""
+    g, w = got[live].float(), want[live].float()
+    ig, iw = g.argmax(-1), w.argmax(-1)
+    w_at_g = w.gather(-1, ig[..., None])[..., 0]
+    g_at_w = g.gather(-1, iw[..., None])[..., 0]
+    bad = (w_at_g < w.amax(-1) - tol) | (g_at_w < g.amax(-1) - tol)
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} argmax beyond the tolerance {tol}")
+    return int((ig == iw).sum()), ig.numel()
+
+
+def phase_encdec(torch, report):
+    """whisper-large-v3 at full width and depth through the model API (the
+    reference serves it there, not through DeepRT's engine): kernels at its
+    shapes, 2+2-layer float32 numerics, then bf16 with 8 rows (one dead)
+    and 1500 seeded frame embeddings: encode_for_decode, WHISPER_STEPS
+    greedy decode steps into a 448-slot self cache, a teacher-forced
+    forward over the same tokens (decode against it within
+    BF16_LOGIT_TOL_STD of the logits' std, and its argmax, on live rows), then the parameters through the port's
+    CheckpointManager (async save, restore onto the card, torch.equal per
+    leaf)."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, leaf_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_for
+
+    attention_at_whisper_shapes(torch, report)
+    encdec_numerics(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(WHISPER)
+    model = model_for(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"{WHISPER}: {cfg.n_encoder_layers} + {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.max_dec_positions} decoder positions: {n_params} parameters, "
+        f"{w_bytes} bytes ({cfg.param_dtype})")
+    b, t = 8, WHISPER_FRAMES
+    frames = (0.1 * torch.randn((b, t, cfg.d_model), generator=gen, device="cuda")).to(cfg.dtype)
+    first = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device="cuda")
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    active[-1] = False
+    ops.reset_launch_counts()
+    with torch.no_grad(), launches_by_shape() as by_shape:
+        cache = model.init_cache(b, WHISPER_DEC_SLOTS, t, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.encode_for_decode(params, frames, cache)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks, dec = greedy_decode(torch, model, params, cache, first, WHISPER_STEPS, active)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fwd, _ = model.forward(params, frames, toks)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    cross_bytes = sum(cache[n].numel() * cache[n].element_size() for n in ("cross_k", "cross_v"))
+    if not torch.isfinite(fwd).all() or tuple(fwd.shape) != (b, WHISPER_STEPS, cfg.vocab_size):
+        raise AssertionError(f"whisper forward: bad logits {tuple(fwd.shape)}")
+    err, tol = within_std("whisper decode vs forward (bf16)", dec[active], fwd[active])
+    same, n = check_argmax("whisper decode vs forward argmax", dec, fwd, active, tol)
+    for name in ("flash_attention", "decode_attention"):
+        if launches[name] < 1:
+            raise AssertionError(f"encdec: {name} was never launched")
+    log(f"encdec bf16 B={b} (1 dead) T={t}: encode_for_decode {enc_s * 1e3:.3f} ms (cross K/V "
+        f"{cross_bytes} bytes), {WHISPER_STEPS} greedy decode steps {dec_s * 1e3:.3f} ms "
+        f"({dec_s * 1e3 / WHISPER_STEPS:.3f} ms a step, eager), teacher-forced forward "
+        f"{fwd_s * 1e3:.3f} ms; decode vs forward max_abs_err={err:.3e} (tol {tol:.3e}, "
+        f"{BF16_LOGIT_TOL_STD} x the logits' std), argmax equal at {same} of {n} live "
+        f"positions (the rest within the tolerance of the forward's top logit); peak {torch.cuda.max_memory_allocated()} bytes; "
+        f"launches {json.dumps(launches)}, by shape {json.dumps(by_shape)}")
+    report["encdec"] = dict(launches=launches, by_shape=dict(by_shape), n_params=n_params,
+                            weights_bytes=w_bytes, argmax_equal=[same, n],
+                            encode_ms=enc_s * 1e3, decode_step_ms=dec_s * 1e3 / WHISPER_STEPS,
+                            forward_ms=fwd_s * 1e3, decode_vs_forward=err, tol=tol)
+    del cache, dec, fwd
+
+    ckdir = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckdir), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, params)
+    stall_s = time.perf_counter() - t0
+    mgr.wait()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = mgr.restore(1, params, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    disk = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file())
+    a, r = leaf_paths(params), leaf_paths(restored)
+    if [n for n, _ in a] != [n for n, _ in r]:
+        raise AssertionError("checkpoint: leaf names differ after restore")
+    for (name, x), (_, y) in zip(a, r):
+        if y.device != x.device or y.dtype != x.dtype or not torch.equal(x, y):
+            raise AssertionError(f"checkpoint: leaf {name} differs after restore")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"checkpoint {WHISPER}: {len(a)} leaves, {disk} bytes on disk; save stall "
+        f"{stall_s * 1e3:.3f} ms, written after {write_s * 1e3:.3f} ms, restored onto the "
+        f"card in {restore_s * 1e3:.3f} ms; every leaf torch.equal")
+    report["encdec"].update(ckpt_stall_ms=stall_s * 1e3, ckpt_write_ms=write_s * 1e3,
+                            ckpt_restore_ms=restore_s * 1e3, ckpt_bytes=disk)
+    del params, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mrope_numerics(torch):
+    """qwen2-vl-72b at full width, 2 layers, float32: the kernel path
+    against impl="dense" on Qwen2-VL positions (forward; prefill + decode
+    steps at the default mrope_position, the cursor on all three
+    streams), and, on text-only positions, decode against the
+    teacher-forced forward, at 2e-3."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_for
+
+    cfg = get_config(QWEN_VL, n_layers=2, param_dtype="float32")
+    m_k = model_for(cfg)
+    m_d = model_for(dataclasses.replace(cfg, impl="dense"))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    params = m_k.init(gen, device="cuda")
+    b, s, n_dec = 2, 300, 4
+    toks = torch.randint(0, cfg.vocab_size, (b, s + n_dec), generator=gen, device="cuda")
+    pos = qwen_vl_positions(torch, b, s, [20, 33])
+    with torch.no_grad():
+        lk, _ = m_k.forward(params, toks[:, :s], pos)
+        ld, _ = m_d.forward(params, toks[:, :s], pos)
+        err = assert_close("qwen2-vl x2 forward logits (vision positions)", lk, ld, 2e-3)
+        outs = []
+        for m in (m_k, m_d):
+            cache = m.init_cache(b, s + n_dec, device="cuda")
+            lg, _ = m.prefill(params, cache, toks[:, :s], pos)
+            steps = [lg]
+            for i in range(n_dec):
+                cur = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+                lg, _ = m.decode_step(params, cache, toks[:, s + i], cur)
+                steps.append(lg)
+            outs.append(torch.stack(steps))
+        err2 = assert_close("qwen2-vl x2 prefill+decode kernel vs dense", outs[0], outs[1], 2e-3)
+        tpos = text_positions(torch, b, s + n_dec)
+        full, _ = m_k.forward(params, toks, tpos)
+        cache = m_k.init_cache(b, s + n_dec, device="cuda")
+        m_k.prefill(params, cache, toks[:, :s], tpos[:, :, :s])
+        steps = []
+        for i in range(n_dec):
+            cur = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            steps.append(m_k.decode_step(params, cache, toks[:, s + i], cur)[0])
+        err3 = assert_close("qwen2-vl x2 decode vs forward (text)", torch.stack(steps, 1),
+                            full[:, s:], 2e-3)
+    log(f"model {QWEN_VL} x2 f32 B={b} S={s}: forward kernel vs dense (vision positions) "
+        f"max_abs_err={err:.3e}; prefill+{n_dec} decode kernel vs dense {err2:.3e}; decode "
+        f"vs forward (text positions) {err3:.3e}")
+    del params, lk, ld, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mrope(torch, report):
+    """qwen2-vl-72b at full width, MROPE_LAYERS of its 80 layers, through
+    the model API (the reference's engine cannot prefill it): kernels at
+    its shapes, 2-layer float32 numerics, then bf16: a batch-8 x 512
+    forward on Qwen2-VL positions, kernel path against the dense path;
+    prefill on them and 32 decode steps into a 2048-slot cache at the
+    default mrope_position, kernel against dense (the reference's
+    semantics); on text-only positions, prefill + 32 decode steps against
+    the teacher-forced forward over the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_for
+
+    attention_at_qwen_vl_shapes(torch, report)
+    mrope_numerics(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{QWEN_VL} depth cut: {MROPE_LAYERS} of 80 layers (full width); device memory "
+        f"allocated before: {torch.cuda.memory_allocated()} bytes")
+    cfg = get_config(QWEN_VL, n_layers=MROPE_LAYERS)
+    m_k = model_for(cfg)
+    m_d = model_for(dataclasses.replace(cfg, impl="dense"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = m_k.init(gen, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"{QWEN_VL} x{MROPE_LAYERS}: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_params} parameters, {w_bytes} bytes ({cfg.param_dtype})")
+    b, s, n_dec = 8, PREFILL_SEQ, MROPE_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (b, s + n_dec), generator=gen, device="cuda")
+    pos = qwen_vl_positions(torch, b, s, [0, 17, 64, 100, 128, 200, 240, 253])
+    ops.reset_launch_counts()
+    times = {}
+    with torch.no_grad(), launches_by_shape() as by_shape:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, _ = m_k.forward(params, toks[:, :s], pos)
+        torch.cuda.synchronize()
+        times["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        ld, _ = m_d.forward(params, toks[:, :s], pos)
+        if not torch.isfinite(lk).all():
+            raise AssertionError("qwen2-vl forward: non-finite logits")
+        err, tol = within_std("qwen2-vl forward kernel vs dense (bf16)", lk, ld)
+        del lk, ld
+        outs = []
+        for m in (m_k, m_d):
+            cache = m.init_cache(b, QWEN_DECODE_SEQ, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = m.prefill(params, cache, toks[:, :s], pos)
+            torch.cuda.synchronize()
+            times.setdefault("prefill_ms", (time.perf_counter() - t0) * 1e3)
+            steps = [lg]
+            t0 = time.perf_counter()
+            for i in range(n_dec):
+                cur = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+                steps.append(m.decode_step(params, cache, toks[:, s + i], cur)[0])
+            torch.cuda.synchronize()
+            times.setdefault("decode_step_ms", (time.perf_counter() - t0) * 1e3 / n_dec)
+            outs.append(torch.stack(steps))
+            del cache
+        err2, tol2 = within_std("qwen2-vl prefill+decode kernel vs dense (bf16)", outs[0],
+                                outs[1])
+        del outs
+        tpos = text_positions(torch, b, s + n_dec)
+        cache = m_k.init_cache(b, QWEN_DECODE_SEQ, device="cuda")
+        m_k.prefill(params, cache, toks[:, :s], tpos[:, :, :s])
+        steps = []
+        for i in range(n_dec):
+            cur = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            steps.append(m_k.decode_step(params, cache, toks[:, s + i], cur)[0])
+        dec = torch.stack(steps, 1)
+        del cache
+        full, _ = m_k.forward(params, toks, tpos)
+        err3, tol3 = within_std("qwen2-vl decode vs forward, text positions (bf16)", dec,
+                                full[:, s:])
+    launches = ops.launch_counts()
+    for name in ("flash_attention", "decode_attention"):
+        if launches[name] < 1:
+            raise AssertionError(f"mrope: {name} was never launched")
+    log(f"mrope bf16 B={b} S={s}: forward {times['forward_ms']:.3f} ms, prefill "
+        f"{times['prefill_ms']:.3f} ms, decode {times['decode_step_ms']:.3f} ms a step "
+        f"(eager); kernel vs dense: forward max_abs_err={err:.3e} (tol {tol:.3e}), "
+        f"prefill+{n_dec} decode {err2:.3e} (tol {tol2:.3e}); decode vs forward (text) "
+        f"{err3:.3e} (tol {tol3:.3e}); tolerances {BF16_LOGIT_TOL_STD} x the logits' std; peak {torch.cuda.max_memory_allocated()} "
+        f"bytes; launches {json.dumps(launches)}, by shape {json.dumps(by_shape)}")
+    report["mrope"] = dict(launches=launches, by_shape=dict(by_shape), n_params=n_params,
+                           weights_bytes=w_bytes,
+                           kernel_vs_dense=[err, tol], decode_kernel_vs_dense=[err2, tol2],
+                           decode_vs_forward=[err3, tol3], **times)
+    del params, dec, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1883,12 +2545,16 @@ def main() -> int:
         phase_transport(torch)
     with Phase("serve_moe"):
         phase_serve_moe(torch)
+    with Phase("encdec"):
+        phase_encdec(torch, report)
+    with Phase("mrope"):
+        phase_mrope(torch, report)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")
     names = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
     extra = ("b1_ms", "b1_previous_ms", "b1_bound_ms", "decode_ms", "decode_previous_ms",
-             "decode_bound_ms")
+             "decode_bound_ms", "shapes")
     rows = [{k: report[n][k] for k in keys + extra if k in keys or k in report[n]}
             for n in names]
     log(f"total run time {time.perf_counter() - T_START:.3f} s")

@@ -1,7 +1,8 @@
 """Parameter conversion between the JAX package's trees and the port's.
 
 ``params_from_numpy(cfg, tree)`` takes the parameter tree that
-``repro``'s ``model.init(key)`` returns, with every leaf already turned
+``repro``'s ``model.init(key)`` returns (a decoder-only ``Transformer``'s
+or, for an encoder-decoder config, an ``EncDecTransformer``'s), with every leaf already turned
 into a numpy array by the caller (this module never imports JAX), and
 returns the port's tree: the same nested dicts and lists, the same
 stacked superblock leaves with their leading ``n_super`` axis (a MoE
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Param, map_tree
-from repro_torch.models.transformer import model_spec
+from repro_torch.models import encdec, transformer
 
 
 def _leaf_to_tensor(arr, device) -> torch.Tensor:
@@ -54,7 +55,8 @@ def _zip_check(spec: Any, tree: Any, path: str = "params") -> None:
 def params_from_numpy(cfg: ModelConfig, tree: Any, device="cuda") -> Any:
     """The JAX parameter tree (numpy leaves) as the port's tensor tree,
     checked leaf by leaf against the port's spec for ``cfg``."""
-    _zip_check(model_spec(cfg), tree)
+    spec = encdec.model_spec(cfg) if cfg.encdec else transformer.model_spec(cfg)
+    _zip_check(spec, tree)
     return map_tree(lambda a: _leaf_to_tensor(a, device), tree)
 
 

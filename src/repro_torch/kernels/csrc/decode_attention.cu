@@ -8,7 +8,10 @@
 //     kv_pos <= cursor  &  kv_valid  &  active  [& kv_pos > cursor - window]
 // (ring caches give -1 sentinels for slots never written), an online
 // softmax in float32, tiles with no live slot skipped, and a row with no
-// live slot writing exact 0.
+// live slot writing exact 0. `causal = 0` drops the kv_pos <= cursor term
+// (cross-attention against an encoder's K/V, whisper's decoder: there the
+// head group is 1, H = KV = 20, D = 64, so the bf16 kernel's 16-row tile
+// carries one live row; it is bound by bytes all the same).
 //
 // What bounds it on the H100: bytes. It reads the live part of the K and V
 // cache once and does 4 G D flops per live slot and kv head: at granite's
@@ -137,8 +140,8 @@ __global__ void __launch_bounds__(kThreads) decode_fma_kernel(
     const uint8_t* __restrict__ kv_valid, // (B, S)
     const uint8_t* __restrict__ active,   // (B,) or null = every row live
     float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
-    int B, int S, int KV, int G_all, int G_chunk, int D, int window, float scale,
-    int tiles_per_split) {
+    int B, int S, int KV, int G_all, int G_chunk, int D, int causal, int window,
+    float scale, int tiles_per_split) {
   // blockIdx.x = kv head * chunks + chunk: the G_all query heads of a kv
   // head are taken G_chunk at a time when they do not fit shared memory
   // together (each chunk then re-reads that head's K/V).
@@ -197,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) decode_fma_kernel(
       int ok = 0;
       if (s < S) {
         const int p = pos_b[s];
-        ok = (p <= cur) && (val_b[s] != 0);
+        ok = (!causal || p <= cur) && (val_b[s] != 0);
         if (window > 0) ok = ok && (p > cur - window);
       }
       live[j] = ok;
@@ -347,7 +350,8 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
     const uint8_t* __restrict__ kv_valid, // (B, S)
     const uint8_t* __restrict__ active,   // (B,) or null = every row live
     float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
-    int B, int S, int KV, int G_all, int D, int window, float scale, int tiles_per_split) {
+    int B, int S, int KV, int G_all, int D, int causal, int window, float scale,
+    int tiles_per_split) {
   constexpr int RS = DP + 8;  // shared row stride in elements
   constexpr int ND = DP / 8;  // 8-column tiles of the output
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -405,7 +409,7 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(
         const int s = t * kBlockK + tid;
         if (s < S) {
           const int p = pos_b[s];
-          ok = p <= cur && val_b[s] != 0 && (window <= 0 || p > cur - window);
+          ok = (!causal || p <= cur) && val_b[s] != 0 && (window <= 0 || p > cur - window);
         }
         const unsigned bits = __ballot_sync(0xffffffffu, ok);
         if (lane == 0) live[2 * stage + warp] = bits;
@@ -609,7 +613,7 @@ struct Args {
   const void *q, *k, *v, *cursor, *kv_pos, *kv_valid, *active;
   void* out;
   float *part_m, *part_l, *part_acc;
-  int B, S, KV, G, D, window;
+  int B, S, KV, G, D, causal, window;
   float scale;
   int n_split, tiles_per_split;
   cudaStream_t stream;
@@ -643,8 +647,8 @@ int launch_fma(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const int32_t*>(a.cursor), static_cast<const int32_t*>(a.kv_pos),
       static_cast<const uint8_t*>(a.kv_valid), static_cast<const uint8_t*>(a.active),
-      a.part_m, a.part_l, a.part_acc, a.B, a.S, a.KV, a.G, g_chunk, a.D, a.window, a.scale,
-      a.tiles_per_split);
+      a.part_m, a.part_l, a.part_acc, a.B, a.S, a.KV, a.G, g_chunk, a.D, a.causal, a.window,
+      a.scale, a.tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return combine<T>(a);
@@ -662,7 +666,7 @@ int launch_mma(const Args& a) {
       static_cast<const bf16*>(a.v), static_cast<const int32_t*>(a.cursor),
       static_cast<const int32_t*>(a.kv_pos), static_cast<const uint8_t*>(a.kv_valid),
       static_cast<const uint8_t*>(a.active), a.part_m, a.part_l, a.part_acc, a.B, a.S, a.KV,
-      a.G, a.D, a.window, a.scale, a.tiles_per_split);
+      a.G, a.D, a.causal, a.window, a.scale, a.tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return combine<bf16>(a);
@@ -676,8 +680,8 @@ bool bad_args(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA), 1 = bfloat16 (mma.sync). window <= 0 means no
-// window. part_m / part_l hold n_split * B * H floats and part_acc that
+// dtype: 0 = float32 (FMA), 1 = bfloat16 (mma.sync). causal: 0/1 (0 drops
+// kv_pos <= cursor). window <= 0 means no window. part_m / part_l hold n_split * B * H floats and part_acc that
 // times D; split z covers slots [z, z + 1) * tiles_per_split * 64. Two
 // launches (partials, combine) on `stream`; returns the first failing
 // launch's cudaGetLastError() (0 on success).
@@ -685,10 +689,11 @@ extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k, con
                                     const void* cursor, const void* kv_pos,
                                     const void* kv_valid, const void* active, void* out,
                                     float* part_m, float* part_l, float* part_acc, int B,
-                                    int S, int KV, int G, int D, int window, float scale,
-                                    int n_split, int tiles_per_split, void* stream) {
+                                    int S, int KV, int G, int D, int causal, int window,
+                                    float scale, int n_split, int tiles_per_split,
+                                    void* stream) {
   const Args a{q, k, v, cursor, kv_pos, kv_valid, active, out, part_m, part_l, part_acc,
-               B, S, KV, G, D, window, scale, n_split, tiles_per_split,
+               B, S, KV, G, D, causal, window, scale, n_split, tiles_per_split,
                static_cast<cudaStream_t>(stream)};
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_fma<float>(a);
@@ -708,10 +713,10 @@ extern "C" int decode_attention_fma_fwd(int dtype, const void* q, const void* k,
                                         const void* kv_pos, const void* kv_valid,
                                         const void* active, void* out, float* part_m,
                                         float* part_l, float* part_acc, int B, int S, int KV,
-                                        int G, int D, int window, float scale, int n_split,
-                                        int tiles_per_split, void* stream) {
+                                        int G, int D, int causal, int window, float scale,
+                                        int n_split, int tiles_per_split, void* stream) {
   const Args a{q, k, v, cursor, kv_pos, kv_valid, active, out, part_m, part_l, part_acc,
-               B, S, KV, G, D, window, scale, n_split, tiles_per_split,
+               B, S, KV, G, D, causal, window, scale, n_split, tiles_per_split,
                static_cast<cudaStream_t>(stream)};
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_fma<float>(a);

@@ -6,6 +6,23 @@
 // optional causal and window masks, online softmax in float32 with the
 // same NEG_INF = -1e30 and l >= 1e-30 clamp, kv head h / (H / KV).
 //
+// Generalised beyond the Pallas kernel (both routes below):
+//   - K and V may hold S_kv != S keys (cross-attention: whisper's decoder
+//     over its encoder's frames). The wrapper allows it without a causal
+//     mask or window only.
+//   - optional int32 positions qpos (B, S) and kpos (B, S_kv): the causal
+//     and window masks then compare position values, not indices
+//     (M-RoPE's temporal stream, where an image's tokens share one
+//     position and so attend to each other both ways). Precondition,
+//     which the plain version checks and the kernel does not: under a
+//     causal mask both are non-decreasing along S and kpos[0] <= qpos[0].
+//     The causal tile skip then stays exact: a kv tile is skipped only
+//     when its first (smallest) key position is past the query tile's last
+//     (largest) query position, and the tiles kept are a prefix found by
+//     binary search. With positions no tile is skipped for a window (the
+//     element mask still applies it). Without positions every instruction
+//     is the arange kernel's (`kPos` is a template argument).
+//
 // What bounds it on the H100: bytes, barely. At granite-3-2b's prefill
 // shape (B = 8, S = 512, H = 32, KV = 8, D = 64, causal) Q, K and V read
 // once and O written once are 41.9 MB (0.0125 ms at 3.35 TB/s) against
@@ -80,10 +97,12 @@ size_t fma_smem_bytes(int D) {
 template <typename T, int NI>
 __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
     const T* __restrict__ q,  // (B, S, H, D)
-    const T* __restrict__ k,  // (B, S, KV, D)
-    const T* __restrict__ v,  // (B, S, KV, D)
+    const T* __restrict__ k,  // (B, S_kv, KV, D)
+    const T* __restrict__ v,  // (B, S_kv, KV, D)
     T* __restrict__ out,      // (B, S, H, D)
-    int S, int H, int KV, int D, int causal, int window, float scale) {
+    const int32_t* __restrict__ qpos,  // (B, S) or null = arange
+    const int32_t* __restrict__ kpos,  // (B, S_kv) or null = arange
+    int S, int Skv, int H, int KV, int D, int causal, int window, float scale) {
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -102,8 +121,13 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
   const size_t qrow = (size_t)H * D;
   const size_t krow = (size_t)KV * D;
   const T* qb = q + (size_t)b * S * qrow + (size_t)h * D;
-  const T* kb = k + (size_t)b * S * krow + (size_t)kh * D;
-  const T* vb = v + (size_t)b * S * krow + (size_t)kh * D;
+  const T* kb = k + (size_t)b * Skv * krow + (size_t)kh * D;
+  const T* vb = v + (size_t)b * Skv * krow + (size_t)kh * D;
+  const int32_t* qp = qpos != nullptr ? qpos + (size_t)b * S : nullptr;
+  const int32_t* kp = kpos != nullptr ? kpos + (size_t)b * Skv : nullptr;
+  // The tile's largest query position (positions non-decreasing).
+  const int q_last = min(q_lo + kBlockQ, S) - 1;
+  const int q_max = qp != nullptr ? qp[q_last] : q_last;
 
   for (int e = tid; e < kBlockQ * D; e += kThreads) {
     const int i = e / D;
@@ -121,11 +145,12 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
     for (int i = 0; i < NI; ++i) acc[r][i] = 0.f;
   }
 
-  const int n_kv = (S + kBlockK - 1) / kBlockK;
+  const int n_kv = (Skv + kBlockK - 1) / kBlockK;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k_lo = kt * kBlockK;
-    if (causal && k_lo > q_lo + kBlockQ - 1) break;  // wholly in the future
-    if (window > 0 && k_lo + kBlockK - 1 <= q_lo - window) continue;  // outside
+    // Wholly in the future: this tile's smallest key past the largest query.
+    if (causal && (kp != nullptr ? kp[k_lo] : k_lo) > q_max) break;
+    if (kp == nullptr && window > 0 && k_lo + kBlockK - 1 <= q_lo - window) continue;
 
     __syncthreads();  // previous tile's readers are done with kT / vs / ps
     for (int e = tid; e < kBlockK * D; e += kThreads) {
@@ -133,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
       const int d = e - j * D;
       const int s = k_lo + j;
       float kv = 0.f, vv = 0.f;
-      if (s < S) {
+      if (s < Skv) {
         kv = to_float(kb[(size_t)s * krow + d]);
         vv = to_float(vb[(size_t)s * krow + d]);
       }
@@ -162,13 +187,15 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int qi = q_lo + ty * 4 + r;
+      const int qv = qp != nullptr ? qp[min(qi, S - 1)] : qi;
       float mx = kNegInf;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kj = k_lo + tx + 16 * c;
-        bool ok = kj < S;
-        if (causal) ok = ok && kj <= qi;
-        if (window > 0) ok = ok && kj > qi - window;
+        const int kv = kp != nullptr ? kp[min(kj, Skv - 1)] : kj;
+        bool ok = kj < Skv;
+        if (causal) ok = ok && kv <= qv;
+        if (window > 0) ok = ok && kv > qv - window;
         sc[r][c] = ok ? sc[r][c] * scale : kNegInf;
         mx = fmaxf(mx, sc[r][c]);
       }
@@ -224,9 +251,17 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
   }
 }
 
+// The shape and mask arguments every launch takes.
+struct Shape {
+  const int32_t *qpos, *kpos;  // null = arange
+  int B, S, Skv, H, KV, D, causal, window;
+  float scale;
+};
+
 template <typename T, int NI>
-int launch_fma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-               int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* out, const Shape& a,
+               cudaStream_t stream) {
+  const int B = a.B, S = a.S, H = a.H, D = a.D;
   const size_t smem = fma_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_fma_kernel<T, NI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -235,20 +270,19 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int B, in
   dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   flash_fma_kernel<T, NI><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KV, D, causal, window, scale);
+      static_cast<T*>(out), a.qpos, a.kpos, S, a.Skv, H, a.KV, D, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_fma(const void* q, const void* k, const void* v, void* out, int B, int S,
-                 int H, int KV, int D, int causal, int window, float scale,
+int dispatch_fma(const void* q, const void* k, const void* v, void* out, const Shape& a,
                  cudaStream_t st) {
-  const int need = (D + 15) / 16;
-  if (need <= 1) return launch_fma<T, 1>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (need <= 2) return launch_fma<T, 2>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (need <= 4) return launch_fma<T, 4>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (need <= 8) return launch_fma<T, 8>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  return launch_fma<T, 16>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  const int need = (a.D + 15) / 16;
+  if (need <= 1) return launch_fma<T, 1>(q, k, v, out, a, st);
+  if (need <= 2) return launch_fma<T, 2>(q, k, v, out, a, st);
+  if (need <= 4) return launch_fma<T, 4>(q, k, v, out, a, st);
+  if (need <= 8) return launch_fma<T, 8>(q, k, v, out, a, st);
+  return launch_fma<T, 16>(q, k, v, out, a, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -364,13 +398,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // the K/V traffic per query, and one warpgroup's softmax overlaps the
 // other's products. Each warpgroup multiplies only the kv tiles its own
 // rows need.
-template <int DP>
+template <int DP, bool kPos>
 __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
     const bf16* __restrict__ q,  // (B, S, H, D)
-    const bf16* __restrict__ k,  // (B, S, KV, D)
-    const bf16* __restrict__ v,  // (B, S, KV, D)
+    const bf16* __restrict__ k,  // (B, S_kv, KV, D)
+    const bf16* __restrict__ v,  // (B, S_kv, KV, D)
     bf16* __restrict__ out,      // (B, S, H, D)
-    int S, int H, int KV, int D, int causal, int window, float scale_log2) {
+    const int32_t* __restrict__ qpos,  // (B, S), read when kPos
+    const int32_t* __restrict__ kpos,  // (B, S_kv), read when kPos
+    int S, int Skv, int H, int KV, int D, int causal, int window, float scale_log2) {
   constexpr int NB = DP / 64;                  // 64-column blocks of D
   constexpr int kTile = NB * kBlockBytes;      // one 64 x DP tile
   extern __shared__ uint8_t smem_raw[];
@@ -391,13 +427,29 @@ __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
   const int lane = tid & 31;
   const size_t qrow = (size_t)H * D;
   const size_t krow = (size_t)KV * D;
-  const bf16* kb = k + (size_t)b * S * krow + (size_t)kh * D;
-  const bf16* vb = v + (size_t)b * S * krow + (size_t)kh * D;
+  const bf16* kb = k + (size_t)b * Skv * krow + (size_t)kh * D;
+  const bf16* vb = v + (size_t)b * Skv * krow + (size_t)kh * D;
+  const int32_t* qp = kPos ? qpos + (size_t)b * S : nullptr;
+  const int32_t* kp = kPos ? kpos + (size_t)b * Skv : nullptr;
 
   // kv tiles the mask leaves work in, [lo, hi], for this warpgroup's rows
   // and for the block (the union, contiguous).
-  const int n_kv = (S + kBlockK - 1) / kBlockK;
+  const int n_kv = (Skv + kBlockK - 1) / kBlockK;
   auto kv_range = [&](int q_lo, int& lo, int& hi) {
+    if (kPos) {
+      lo = 0;
+      hi = n_kv - 1;
+      if (causal) {  // the prefix of tiles whose first key is <= the tile's last query
+        const int q_max = qp[min(q_lo + kBlockQ, S) - 1];
+        int a = 0, z = n_kv;
+        while (a < z) {
+          const int mid = (a + z) >> 1;
+          if (kp[mid * kBlockK] <= q_max) a = mid + 1; else z = mid;
+        }
+        hi = a - 1;
+      }
+      return;
+    }
     hi = causal ? min(n_kv - 1, (q_lo + kBlockQ - 1) / kBlockK) : n_kv - 1;
     const int first_key = q_lo - window + 1;  // smallest key a row here keeps
     lo = (window > 0 && first_key > 0) ? first_key / kBlockK : 0;
@@ -418,8 +470,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
   cp_async_commit();
   {
     const int k_lo = kt_lo * kBlockK;
-    load_tile<DP>(sK, kb + (size_t)k_lo * krow, krow, S - k_lo, D, tid);
-    load_tile<DP>(sV, vb + (size_t)k_lo * krow, krow, S - k_lo, D, tid);
+    load_tile<DP>(sK, kb + (size_t)k_lo * krow, krow, Skv - k_lo, D, tid);
+    load_tile<DP>(sV, vb + (size_t)k_lo * krow, krow, Skv - k_lo, D, tid);
     cp_async_commit();
   }
 
@@ -433,13 +485,18 @@ __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
   const int row0 = q_lo + warp * 16 + (lane >> 2);
   const int col0 = 2 * (lane & 3);
   const uint32_t sQw = sQ + wg * kTile;
+  int qv[2];  // kPos: this thread's two rows' mask positions
+  if constexpr (kPos) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) qv[i] = qp[min(row0 + 8 * i, S - 1)];
+  }
 
   int st = 0;
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     if (kt < kt_hi) {  // next tile into the other stage, in flight during this one
       const int k_lo = (kt + 1) * kBlockK;
-      load_tile<DP>(sK + (st ^ 1) * kTile, kb + (size_t)k_lo * krow, krow, S - k_lo, D, tid);
-      load_tile<DP>(sV + (st ^ 1) * kTile, vb + (size_t)k_lo * krow, krow, S - k_lo, D, tid);
+      load_tile<DP>(sK + (st ^ 1) * kTile, kb + (size_t)k_lo * krow, krow, Skv - k_lo, D, tid);
+      load_tile<DP>(sV + (st ^ 1) * kTile, vb + (size_t)k_lo * krow, krow, Skv - k_lo, D, tid);
     }
     cp_async_commit();
     cp_async_wait1();  // Q and this tile have landed (this thread's copies)
@@ -467,6 +524,13 @@ __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
       // (Testing the mask only on tiles a mask reaches into measured
       // slower: the per-element test is cheaper than the branch.)
       const int k_lo = kt * kBlockK;
+      int kv[8][2];  // kPos: this thread's 16 columns' mask positions
+      if constexpr (kPos) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) kv[n][j] = kp[min(k_lo + 8 * n + col0 + j, Skv - 1)];
+      }
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -475,10 +539,15 @@ __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int kj = k_lo + 8 * n + col0 + j;
-            const int qi = row0 + 8 * i;
-            bool ok = kj < S;
-            if (causal) ok = ok && kj <= qi;
-            if (window > 0) ok = ok && kj > qi - window;
+            bool ok = kj < Skv;
+            if constexpr (kPos) {
+              if (causal) ok = ok && kv[n][j] <= qv[i];
+              if (window > 0) ok = ok && kv[n][j] > qv[i] - window;
+            } else {
+              const int qi = row0 + 8 * i;
+              if (causal) ok = ok && kj <= qi;
+              if (window > 0) ok = ok && kj > qi - window;
+            }
             float& x = s[4 * n + 2 * i + j];
             x = ok ? x * scale_log2 : kNegInf;
             mx[i] = fmaxf(mx[i], x);
@@ -551,58 +620,72 @@ __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
   }
 }
 
-template <int DP>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S,
-                 int H, int KV, int D, int causal, int window, float scale,
+template <int DP, bool kPos>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, const Shape& a,
                  cudaStream_t stream) {
   // Two Q tiles, two K and two V stages, + alignment slack.
   const size_t smem = 6 * (size_t)(DP / 64) * kBlockBytes + 1024;
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DP, kPos>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(H, B, (S + 2 * kBlockQ - 1) / (2 * kBlockQ));
-  flash_wgmma_kernel<DP><<<grid, kFlashThreads, smem, stream>>>(
+  dim3 grid(a.H, a.B, (a.S + 2 * kBlockQ - 1) / (2 * kBlockQ));
+  flash_wgmma_kernel<DP, kPos><<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), S, H, KV, D, causal, window, scale * 1.4426950408889634f);
+      static_cast<bf16*>(out), a.qpos, a.kpos, a.S, a.Skv, a.H, a.KV, a.D, a.causal, a.window,
+      a.scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int B, int S, int H, int KV, int D) {
-  return D % 8 != 0 || D > 256 || KV < 1 || H % KV != 0 || B < 1 || S < 1;
+template <int DP>
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* out, const Shape& a,
+                   cudaStream_t st) {
+  if (a.qpos != nullptr) return launch_wgmma<DP, true>(q, k, v, out, a, st);
+  return launch_wgmma<DP, false>(q, k, v, out, a, st);
+}
+
+// S_kv != S only without a causal mask or window; positions come in pairs.
+bool bad_shape(const Shape& a) {
+  return a.D % 8 != 0 || a.D > 256 || a.KV < 1 || a.H % a.KV != 0 || a.B < 1 || a.S < 1 ||
+         a.Skv < 1 || (a.Skv != a.S && (a.causal || a.window > 0)) ||
+         ((a.qpos == nullptr) != (a.kpos == nullptr));
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel). causal:
-// 0/1. window <= 0 means none. Returns the launch's cudaGetLastError()
-// (0 on success).
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel). qpos /
+// kpos: int32 (B, S) / (B, S_kv) mask positions, or both null for arange.
+// causal: 0/1. window <= 0 means none. Returns the launch's
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* out, int B, int S, int H, int KV, int D,
-                                   int causal, int window, float scale, void* stream) {
-  if (bad_shape(B, S, H, KV, D)) return (int)cudaErrorInvalidValue;
+                                   void* out, const void* qpos, const void* kpos, int B,
+                                   int S, int Skv, int H, int KV, int D, int causal,
+                                   int window, float scale, void* stream) {
+  const Shape a{static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
+                B, S, Skv, H, KV, D, causal, window, scale};
+  if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_fma<float>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (dtype == 0) return dispatch_fma<float>(q, k, v, out, a, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D <= 64) return launch_wgmma<64>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (D <= 128) return launch_wgmma<128>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (D <= 192) return launch_wgmma<192>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  return launch_wgmma<256>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (D <= 64) return dispatch_wgmma<64>(q, k, v, out, a, st);
+  if (D <= 128) return dispatch_wgmma<128>(q, k, v, out, a, st);
+  if (D <= 192) return dispatch_wgmma<192>(q, k, v, out, a, st);
+  return dispatch_wgmma<256>(q, k, v, out, a, st);
 }
 
 // The previous bf16 design (the FMA kernel: the float32 route's
 // template, here at either dtype), kept for side-by-side timing only. Same
 // arguments as flash_attention_fwd.
 extern "C" int flash_attention_fma_fwd(int dtype, const void* q, const void* k,
-                                       const void* v, void* out, int B, int S, int H, int KV,
+                                       const void* v, void* out, const void* qpos,
+                                       const void* kpos, int B, int S, int Skv, int H, int KV,
                                        int D, int causal, int window, float scale,
                                        void* stream) {
-  if (bad_shape(B, S, H, KV, D)) return (int)cudaErrorInvalidValue;
+  const Shape a{static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
+                B, S, Skv, H, KV, D, causal, window, scale};
+  if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_fma<float>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
-  if (dtype == 1)
-    return dispatch_fma<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, causal, window, scale, st);
+  if (dtype == 0) return dispatch_fma<float>(q, k, v, out, a, st);
+  if (dtype == 1) return dispatch_fma<__nv_bfloat16>(q, k, v, out, a, st);
   return (int)cudaErrorInvalidValue;
 }

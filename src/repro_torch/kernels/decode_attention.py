@@ -10,8 +10,9 @@ partials, then their combine).
 
 Semantics (shared with the plain version): slot ``s`` of row ``b`` is
 live when ``kv_pos <= cursor & kv_valid & active`` (and
-``kv_pos > cursor - window`` under a window); a row with no live slot
-outputs exact 0.
+``kv_pos > cursor - window`` under a window); ``causal=False``
+(cross-attention against an encoder's K/V) drops the ``kv_pos <= cursor``
+term. A row with no live slot outputs exact 0.
 
 S is split over blocks by ``plan_splits``; ``ref.decode_attention_split_plain``
 is the plain twin of that two-pass arithmetic.
@@ -40,7 +41,7 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 
@@ -87,7 +88,7 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 
 def _launch(symbol, q, cache_k, cache_v, cursor, kv_pos, kv_valid, active, window,
-            n_split: Optional[int] = None) -> torch.Tensor:
+            causal=True, n_split: Optional[int] = None) -> torch.Tensor:
     """Check the arguments, plan the split (or take ``n_split``) and run
     one call of the C entry point ``symbol``."""
     if q.device.type != "cuda":
@@ -133,7 +134,7 @@ def _launch(symbol, q, cache_k, cache_v, cursor, kv_pos, kv_valid, active, windo
         cursor.data_ptr(), kv_pos.data_ptr(), kv_valid.data_ptr(),
         None if active is None else active.data_ptr(), out.data_ptr(),
         ptr, ptr + 4 * n, ptr + 8 * n,
-        b, s, kv, h // kv, d, 0 if window is None else int(window),
+        b, s, kv, h // kv, d, int(bool(causal)), 0 if window is None else int(window),
         1.0 / math.sqrt(d), n_split, per, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -151,21 +152,23 @@ def decode_attention(
     active: Optional[torch.Tensor] = None,  # (B,) bool; None = all live
     *,
     window: Optional[int] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """Launch the CUDA kernel. CUDA tensors only: raises otherwise."""
     global launches
-    out = _launch(SYMBOL, q, cache_k, cache_v, cursor, kv_pos, kv_valid, active, window)
+    out = _launch(SYMBOL, q, cache_k, cache_v, cursor, kv_pos, kv_valid, active, window,
+                  causal)
     launches += 1
     return out
 
 
 def previous_design(q, cache_k, cache_v, cursor, kv_pos, kv_valid, active=None, *,
-                    window=None) -> torch.Tensor:
+                    window=None, causal=True) -> torch.Tensor:
     """The previous bf16 design (FMA, one split: a grid of one block per
     (row, kv head)) for side-by-side timing. Not counted in
     ``launches``; ``ops`` never calls it."""
     return _launch(PREVIOUS_SYMBOL, q, cache_k, cache_v, cursor, kv_pos, kv_valid, active,
-                   window, n_split=1)
+                   window, causal, n_split=1)
 
 
 __all__ = ["decode_attention", "decode_attention_plain", "launches", "plan_splits"]

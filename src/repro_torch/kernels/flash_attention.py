@@ -8,9 +8,21 @@ kernel is held against. ``launches`` counts kernel launches. A bf16
 tensor runs the tensor-core (wgmma) kernel, a float32 one the FMA kernel:
 a rule by dtype, not a fallback.
 
-Positions are arange (left-aligned prefill); keys at or past ``S`` do not
-exist, a causal query attends to keys ``<= `` its position, a window of
-``w`` keeps keys ``> position - w``.
+Without positions they are arange (left-aligned prefill); keys at or
+past ``S_kv`` do not exist, a causal query attends to keys ``<=`` its
+position, a window of ``w`` keeps keys ``> position - w``. Optional int32
+``q_pos (B, S)`` and ``kv_pos (B, S_kv)`` make those masks compare
+position values (M-RoPE's temporal stream, where an image's tokens share
+one position and attend to each other both ways). K and V may have
+``S_kv != S`` keys (cross-attention) without a causal mask or window.
+
+Precondition of explicit positions under a causal mask: both are
+non-decreasing along S, and ``kv_pos[:, 0] <= q_pos[:, 0]`` (every query
+has a key at or before it). The kernel skips a kv tile when its first
+key's position exceeds the query tile's last query's position, which is
+"every key of the tile is past every query of the tile" only then. The
+wrapper does not check it (that would be a host sync on the card); the
+plain version does, and the CPU tests hold it.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import _check
+from repro_torch.kernels.ref import check_flash_masks
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 NAME = "flash_attention"
@@ -33,7 +46,7 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -46,7 +59,7 @@ def _fn(symbol: str):
     return fn
 
 
-def _launch(symbol, q, k, v, causal, window) -> torch.Tensor:
+def _launch(symbol, q, k, v, causal, window, q_pos=None, kv_pos=None) -> torch.Tensor:
     """Check the arguments and run one call of the C entry point ``symbol``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")
@@ -55,24 +68,31 @@ def _launch(symbol, q, k, v, causal, window) -> torch.Tensor:
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q/k must be 4-d, got {tuple(q.shape)} / {tuple(k.shape)}")
     b, s, h, d = q.shape
-    kv = k.shape[2]
+    skv, kv = k.shape[1], k.shape[2]
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} kv heads")
     if d % 8 or d > 256:
         raise ValueError(f"head dim {d} must be a multiple of 8 up to 256")
+    check_flash_masks(s, skv, causal, window, q_pos, kv_pos)
     dev = q.device
     _check("q", q, (b, s, h, d), q.dtype, dev)
-    _check("k", k, (b, s, kv, d), q.dtype, dev)
-    _check("v", v, (b, s, kv, d), q.dtype, dev)
+    _check("k", k, (b, skv, kv, d), q.dtype, dev)
+    _check("v", v, (b, skv, kv, d), q.dtype, dev)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    # Positions are read only where a mask compares them.
+    use_pos = q_pos is not None and (causal or window is not None)
+    if use_pos:
+        _check("q_pos", q_pos, (b, s), torch.int32, dev)
+        _check("kv_pos", kv_pos, (b, skv), torch.int32, dev)
     out = torch.empty_like(q)
     err = _fn(symbol)(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, kv, d, int(bool(causal)), 0 if window is None else int(window),
+        q_pos.data_ptr() if use_pos else None, kv_pos.data_ptr() if use_pos else None,
+        b, s, skv, h, kv, d, int(bool(causal)), 0 if window is None else int(window),
         1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -82,22 +102,28 @@ def _launch(symbol, q, k, v, causal, window) -> torch.Tensor:
 
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, S, KV, D)
+    k: torch.Tensor,  # (B, S_kv, KV, D)
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    q_pos: Optional[torch.Tensor] = None,  # (B, S) int32
+    kv_pos: Optional[torch.Tensor] = None,  # (B, S_kv) int32
 ) -> torch.Tensor:
     """Launch the CUDA kernel. CUDA tensors only: raises otherwise."""
     global launches
-    out = _launch(SYMBOL, q, k, v, causal, window)
+    out = _launch(SYMBOL, q, k, v, causal, window, q_pos, kv_pos)
     launches += 1
     return out
 
 
 def previous_design(q, k, v, *, causal=True, window=None) -> torch.Tensor:
     """The previous bf16 design (the FMA kernel) for side-by-side
-    timing. Not counted in ``launches``; ``ops`` never calls it."""
+    timing at the shapes it was measured at (S_kv = S, arange positions;
+    it raises on the others). Not counted in ``launches``; ``ops`` never
+    calls it."""
+    if k.shape[1] != q.shape[1]:
+        raise ValueError("previous_design takes S_kv == S only")
     return _launch(PREVIOUS_SYMBOL, q, k, v, causal, window)
 
 

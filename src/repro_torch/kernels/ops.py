@@ -37,16 +37,18 @@ def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    positions: Optional[torch.Tensor] = None,  # (B, S) — must be arange
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    q_pos: Optional[torch.Tensor] = None,  # (B, S) int32; None = arange
+    kv_pos: Optional[torch.Tensor] = None,  # (B, S_kv) int32
 ) -> torch.Tensor:
-    """Prefill attention. The kernel assumes arange positions
-    (left-aligned prefill); ``positions`` is accepted and not read."""
+    """Prefill (or cross-) attention; see ``kernels/flash_attention.py``
+    for the masks and the positions' precondition."""
+    kw = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
     if _on_cuda(q):
-        return _flash.flash_attention(q, k, v, causal=causal, window=window)
-    return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return _flash.flash_attention(q, k, v, **kw)
+    return _flash.flash_attention_plain(q, k, v, **kw)
 
 
 def decode_attention(
@@ -59,14 +61,11 @@ def decode_attention(
     active: Optional[torch.Tensor] = None,  # (B,) live-slot bitmap (arena)
     *,
     window: Optional[int] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
-    if _on_cuda(q):
-        return _decode.decode_attention(
-            q, cache_k, cache_v, cursor, kv_pos, kv_valid, active, window=window
-        )
-    return _decode.decode_attention_plain(
-        q, cache_k, cache_v, cursor, kv_pos, kv_valid, active, window=window
-    )
+    fn = _decode.decode_attention if _on_cuda(q) else _decode.decode_attention_plain
+    return fn(q, cache_k, cache_v, cursor, kv_pos, kv_valid, active, window=window,
+              causal=causal)
 
 
 def rglru_scan(

@@ -27,31 +27,67 @@ import torch
 NEG_INF = -1e30
 
 
+def check_nondecreasing(name: str, pos: torch.Tensor) -> None:
+    """Raise unless ``pos`` (B, S) never decreases along S: the flash
+    kernel's causal tile skip under explicit positions relies on it
+    (Qwen2-VL's temporal stream, and arange, satisfy it)."""
+    if pos.shape[-1] > 1 and bool((pos[:, 1:] < pos[:, :-1]).any()):
+        raise ValueError(f"{name} must be non-decreasing along S under a causal mask")
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, S, KV, D)
+    k: torch.Tensor,  # (B, S_kv, KV, D)
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    q_pos: Optional[torch.Tensor] = None,  # (B, S) integer
+    kv_pos: Optional[torch.Tensor] = None,  # (B, S_kv) integer
 ) -> torch.Tensor:
-    """Materialized-softmax attention with arange positions."""
+    """Materialized-softmax attention. Without positions they are arange;
+    with them, the causal and window masks compare position values (so
+    keys that share a query's position attend both ways). ``S_kv != S``
+    is non-causal and windowless only. Under a causal mask, explicit
+    positions must be non-decreasing along S with ``kv_pos[:, 0] <=
+    q_pos[:, 0]``, the flash kernel's precondition (checked here)."""
     b, s, h, d = q.shape
-    kv = k.shape[2]
+    skv, kv = k.shape[1], k.shape[2]
     g = h // kv
+    check_flash_masks(s, skv, causal, window, q_pos, kv_pos)
+    if causal and q_pos is not None:
+        check_nondecreasing("q_pos", q_pos)
+        check_nondecreasing("kv_pos", kv_pos)
+        if bool((kv_pos[:, 0] > q_pos[:, 0]).any()):
+            raise ValueError("under a causal mask every query needs a key at or before it: "
+                             "kv_pos[:, 0] <= q_pos[:, 0]")
     qg = q.reshape(b, s, kv, g, d).float()
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(d)
-    qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if q_pos is None:
+        qp = torch.arange(s, device=q.device).expand(b, s)
+        kp = torch.arange(skv, device=q.device).expand(b, skv)
+    else:
+        qp, kp = q_pos.long(), kv_pos.long()
+    qp, kp = qp[:, :, None], kp[:, None, :]
+    mask = torch.ones((b, s, skv), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= kpos <= qpos
+        mask &= kp <= qp
     if window is not None:
-        mask &= kpos > qpos - window
-    logits = torch.where(mask, logits, NEG_INF)
+        mask &= kp > qp - window
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def check_flash_masks(s: int, skv: int, causal: bool, window, q_pos, kv_pos) -> None:
+    """The argument rules the flash kernel and its plain version share."""
+    if skv != s and (causal or window is not None):
+        raise ValueError(
+            f"S_kv = {skv} != S = {s} is supported without a causal mask or window only"
+        )
+    if (q_pos is None) != (kv_pos is None):
+        raise ValueError("q_pos and kv_pos come together")
 
 
 def decode_attention_ref(
@@ -64,7 +100,10 @@ def decode_attention_ref(
     active: Optional[torch.Tensor] = None,  # (B,) bool
     *,
     window: Optional[int] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
+    """One query token per row against its cache; ``causal=False``
+    (cross-attention) drops the ``kv_pos <= cursor`` term."""
     b, _, h, d = q.shape
     kv = cache_k.shape[2]
     g = h // kv
@@ -72,7 +111,9 @@ def decode_attention_ref(
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.float()) / math.sqrt(d)
     cursor = cursor.long()
     kv_pos = kv_pos.long()
-    mask = (kv_pos <= cursor[:, None]) & kv_valid.bool()
+    mask = kv_valid.bool()
+    if causal:
+        mask = mask & (kv_pos <= cursor[:, None])
     if window is not None:
         mask &= kv_pos > (cursor[:, None] - window)
     if active is not None:
@@ -98,6 +139,7 @@ def decode_attention_split_plain(
     active: Optional[torch.Tensor] = None,  # (B,) bool
     *,
     window: Optional[int] = None,
+    causal: bool = True,
     n_split: int = 1,
 ) -> torch.Tensor:
     """The plain twin of the CUDA kernel's two passes. S is cut into
@@ -115,7 +157,9 @@ def decode_attention_split_plain(
     logits = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float()) / math.sqrt(d)
     cursor = cursor.long()
     kv_pos = kv_pos.long()
-    mask = (kv_pos <= cursor[:, None]) & kv_valid.bool()
+    mask = kv_valid.bool()
+    if causal:
+        mask = mask & (kv_pos <= cursor[:, None])
     if window is not None:
         mask &= kv_pos > (cursor[:, None] - window)
     if active is not None:

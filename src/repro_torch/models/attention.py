@@ -10,8 +10,17 @@ Two execution paths, selected by ``impl``:
   materialized-logits attention under a mask from ``build_mask``.
 
 Public layouts are the JAX package's: ``wq (D, H, K)``, q ``(B, S, H, D)``,
-caches ``(B, S, KV, D)``. Cross-attention (``kv_override``, whisper) and
-M-RoPE (qwen2-vl) are not ported yet (ROADMAP.md).
+caches ``(B, S, KV, D)``, M-RoPE positions ``(3, B, S)``.
+
+Masks follow the reference's default (``xla``) semantics on every path:
+
+- M-RoPE (qwen2-vl) masks prefill by the temporal stream's position
+  values (``positions[0]``), so an image's tokens, which share one
+  temporal position, attend to each other both ways; the kernel path
+  passes those positions to the flash kernel.
+- Cross-attention (``kv_override``, whisper) has no causal mask and no
+  rope on K; its keys sit at ``arange(S_kv)``.
+- ``mha_decode(causal=False)`` drops ``kv_pos <= cursor`` on every path.
 """
 from __future__ import annotations
 
@@ -21,11 +30,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import Param, apply_rope
+from repro_torch.models.layers import Param, apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
 KERNEL_IMPLS = ("xla", "pallas")
+ROPE_KINDS = ("rope", "mrope", "none")
 
 
 def attention_spec(
@@ -54,11 +64,18 @@ def _check_impl(impl: str) -> None:
 
 
 def _check_rope(rope_kind: str) -> None:
-    if rope_kind not in ("rope", "none"):
-        raise NotImplementedError(
-            f"rope_kind {rope_kind!r} is not ported yet (ROADMAP.md: "
-            f"encdec/mrope)"
-        )
+    if rope_kind not in ROPE_KINDS:
+        raise ValueError(f"unknown rope_kind {rope_kind!r}")
+
+
+def _rotate(t: torch.Tensor, positions, rope_theta, rope_kind: str) -> torch.Tensor:
+    """``t`` rotated by its positions: (B, S) for rope, (3, B, S) for
+    mrope; unchanged for "none" (or rope without a theta)."""
+    if rope_kind == "rope" and rope_theta is not None:
+        return apply_rope(t, positions, rope_theta)
+    if rope_kind == "mrope":
+        return apply_mrope(t, positions, rope_theta)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -145,9 +162,7 @@ def project_kv(
     v = _proj(x, p["wv"])
     if "bv" in p:
         v = v + p["bv"]
-    if rope_kind == "rope" and rope_theta is not None:
-        k = apply_rope(k, positions, rope_theta)
-    return k, v
+    return _rotate(k, positions, rope_theta, rope_kind), v
 
 
 # ---------------------------------------------------------------------------
@@ -158,34 +173,49 @@ def project_kv(
 def mha(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S), or (3, B, S) for mrope
     *,
     causal: bool = True,
     window: Optional[int] = None,
     rope_theta: Optional[float] = 10000.0,
-    rope_kind: str = "rope",  # rope | none
+    rope_kind: str = "rope",  # rope | mrope | none
     impl: str = "xla",  # xla | pallas | dense
-    kv_override=None,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attn
 ) -> torch.Tensor:
-    """Self-attention over a full sequence (prefill). The kernel path
-    assumes arange positions, as the reference's flash kernel does."""
+    """Self- (or cross-) attention over a full sequence (prefill).
+
+    Self-attention with rope or none: the kernel path assumes arange
+    positions, as the reference's flash kernel does. Under mrope it masks
+    by ``positions[0]``; with ``kv_override = (k, v)`` (B, S_kv, KV, D)
+    there is no causal mask and no rope on K, and keys sit at
+    ``arange(S_kv)``."""
     _check_impl(impl)
     _check_rope(rope_kind)
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override) is not ported yet (ROADMAP.md: encdec)"
-        )
-    q, k, v = project_qkv(p, x)
-    if rope_kind == "rope" and rope_theta is not None:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+    pos1d = positions if positions.dim() == 2 else positions[0]
+    rot = pos1d if rope_kind == "rope" else positions
+    if kv_override is None:
+        q, k, v = project_qkv(p, x)
+        k = _rotate(k, rot, rope_theta, rope_kind)
+        kv_pos = pos1d
+    else:
+        q = _proj(x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        k, v = kv_override
+        causal = False
+        kv_pos = torch.arange(k.shape[1], device=x.device).expand(x.shape[0], k.shape[1])
+    q = _rotate(q, rot, rope_theta, rope_kind)
     if impl in KERNEL_IMPLS:
+        mask_pos = {}
+        if kv_override is not None or rope_kind == "mrope":
+            mask_pos = dict(q_pos=pos1d.to(torch.int32).contiguous(),
+                            kv_pos=kv_pos.to(torch.int32).contiguous())
         o = kernel_ops.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), positions,
-            causal=causal, window=window,
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            causal=causal, window=window, **mask_pos,
         )
     else:
-        mask = build_mask(positions, positions, None, causal, window)
+        mask = build_mask(pos1d, kv_pos, None, causal, window)
         o = dense_attention(q, k, v, mask)
     return project_out(p, o)
 
@@ -199,29 +229,32 @@ def mha_decode(
     kv_positions: torch.Tensor,  # (B, S_cache) — absolute pos per slot
     kv_valid: torch.Tensor,  # (B, S_cache) bool
     *,
-    causal: bool = True,
+    causal: bool = True,  # False for cross-attention
     window: Optional[int] = None,
     rope_theta: Optional[float] = 10000.0,
     rope_kind: str = "rope",
+    mrope_position: Optional[torch.Tensor] = None,  # (3, B, 1)
     impl: str = "xla",
     active: Optional[torch.Tensor] = None,  # (B,) live-slot bitmap (arena)
 ) -> torch.Tensor:
     """One-token attention against a KV cache. The caller has already
     written this token's K/V into the cache; q is projected and rotated
-    here. ``active`` marks live slot-arena rows: a dead row attends to
-    nothing (the kernel skips all its KV tiles and outputs 0; the dense
-    path's output for it is unspecified), so batch size is data."""
+    here (by ``mrope_position`` under mrope). ``causal=False`` drops the
+    ``kv_pos <= position`` term. ``active`` marks live slot-arena rows: a
+    dead row attends to nothing (the kernel skips all its KV tiles and
+    outputs 0; the dense path's output for it is unspecified), so batch
+    size is data."""
     _check_impl(impl)
     _check_rope(rope_kind)
     q = _proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    if rope_kind == "rope" and rope_theta is not None:
-        q = apply_rope(q, position[:, None], rope_theta)
+    q = _rotate(q, mrope_position if rope_kind == "mrope" else position[:, None],
+                rope_theta, rope_kind)
     if impl in KERNEL_IMPLS:
         o = kernel_ops.decode_attention(
             q.contiguous(), cache_k, cache_v, position, kv_positions, kv_valid,
-            active, window=window,
+            active, window=window, causal=causal,
         )
     else:
         if active is not None:

@@ -152,6 +152,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float,
+    sections: Tuple[int, int, int] = (2, 1, 1),
+) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the head dim's frequency bands are
+    split into temporal / height / width sections (t:h:w = 2:1:1), each
+    rotated by its own position stream. x: (B, S, H, D); positions:
+    (3, B, S) integer."""
+    half = x.shape[-1] // 2
+    # The height and width streams' first bands: ``sections`` are weights
+    # over the ``half`` bands, each boundary floored as the reference does.
+    total = sum(sections)
+    b0 = (half * sections[0]) // total
+    b1 = b0 + (half * sections[1]) // total
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (half,)
+    pos = positions.float()  # (3, B, S)
+    per_band = torch.cat([  # (B, S, half): the stream that drives each band
+        pos[0, ..., None].expand(*pos.shape[1:], b0),
+        pos[1, ..., None].expand(*pos.shape[1:], b1 - b0),
+        pos[2, ..., None].expand(*pos.shape[1:], half - b1),
+    ], dim=-1)
+    angles = per_band * freqs
+    sin = torch.sin(angles)[..., None, :]  # (B, S, 1, half)
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device="cuda") -> torch.Tensor:
+    """Whisper-style sinusoidal positional embedding (T, D), float32."""
+    log_timescale = math.log(10000.0) / max(dim // 2 - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(dim // 2, dtype=torch.float32, device=device))
+    scaled = torch.arange(length, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

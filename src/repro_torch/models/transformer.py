@@ -16,8 +16,14 @@ Block kinds: ``attn`` (global attention), ``swa`` (sliding-window
 attention over a ring cache), ``rglru`` (Griffin recurrent block) and
 ``rwkv`` (RWKV-6 time-mix with its channel-mix as the FFN). An ``attn``
 or ``swa`` block's FFN is dense, or a mixture of experts
-(``models/moe.py``) when the config has experts. Encoder-decoder models
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+(``models/moe.py``) when the config has experts.
+
+M-RoPE models (qwen2-vl) take ``(3, B, S)`` positions in ``forward`` and
+``prefill`` (temporal, height, width streams; the vision frontend that
+makes them is a stub, as in the reference) and raise without them; decode
+rotates by ``mrope_position`` (3, B, 1), the cursor on all three streams
+by default. Encoder-decoder models (whisper) live in ``encdec.py``;
+``repro_torch.models.model_for`` dispatches.
 """
 from __future__ import annotations
 
@@ -61,13 +67,26 @@ from repro_torch.models.recurrent import (
 KINDS = ("attn", "swa", "rglru", "rwkv")
 
 
-def _require_ported(cfg: ModelConfig, kind: str) -> None:
+def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind}")
-    if cfg.encdec:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP.md: encdec/mrope)"
-        )
+
+
+def _positions(cfg: ModelConfig, tokens: torch.Tensor, positions) -> torch.Tensor:
+    """The positions a full-sequence pass runs at: arange by default,
+    given ones as they are; an M-RoPE model needs its (3, B, S) streams."""
+    b, s = tokens.shape
+    if cfg.rope_kind == "mrope":
+        if positions is None or tuple(positions.shape) != (3, b, s):
+            got = None if positions is None else tuple(positions.shape)
+            raise ValueError(
+                f"{cfg.arch_id} uses M-RoPE: pass positions of shape (3, {b}, {s}) "
+                f"(temporal, height, width streams), got {got}"
+            )
+        return positions
+    if positions is None:
+        return torch.arange(s, device=tokens.device).expand(b, s)
+    return positions
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +99,7 @@ def _is_moe_block(cfg: ModelConfig, kind: str) -> bool:
 
 
 def block_spec(cfg: ModelConfig, kind: str) -> Dict:
-    _require_ported(cfg, kind)
+    _check_kind(kind)
     d = cfg.d_model
     spec: Dict[str, Any] = {"norm1": norm_spec(d, cfg.norm)}
     if kind in ("attn", "swa"):
@@ -133,7 +152,7 @@ def _apply_block_full(
     kind: str,
     p: Dict,
     x: torch.Tensor,
-    positions: torch.Tensor,
+    positions: torch.Tensor,  # (B, S), or (3, B, S) under mrope
     collect: bool,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict]]:
     """Returns (x_out, MoE aux loss or None, cache_contrib or None)."""
@@ -177,6 +196,7 @@ def _apply_block_decode(
     cache: Dict,
     active: Optional[torch.Tensor],  # (B,) live-slot bitmap (arena)
     attn_views: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (kv_pos, kv_valid)
+    mrope_position: Optional[torch.Tensor] = None,  # (3, B, 1) under mrope
 ) -> torch.Tensor:
     """One token through one block; updates ``cache`` in place: this
     token's K/V for attention kinds, every state leaf for the recurrent
@@ -184,7 +204,8 @@ def _apply_block_decode(
     whatever ``active`` says (only attention reads the bitmap)."""
     h = apply_norm(x, p["norm1"], cfg.norm)
     if kind in ("attn", "swa"):
-        k, v = project_kv(p["mixer"], h, cursor[:, None], cfg.rope_theta, cfg.rope_kind)
+        pos_for_kv = mrope_position if cfg.rope_kind == "mrope" else cursor[:, None]
+        k, v = project_kv(p["mixer"], h, pos_for_kv, cfg.rope_theta, cfg.rope_kind)
         if kind == "attn":
             kvcache.attn_cache_write(cache, k, v, cursor)
             kv_pos, valid = attn_views
@@ -196,7 +217,7 @@ def _apply_block_decode(
         y = mha_decode(
             p["mixer"], h, cursor, cache["k"], cache["v"], kv_pos, valid,
             window=window, rope_theta=cfg.rope_theta, rope_kind=cfg.rope_kind,
-            impl=cfg.impl, active=active,
+            mrope_position=mrope_position, impl=cfg.impl, active=active,
         )
     elif kind == "rglru":
         y, state = griffin_block(
@@ -248,7 +269,7 @@ def _layer_cache(
     cfg: ModelConfig, kind: str, batch: int, max_len: int, device, lead: Tuple[int, ...] = ()
 ) -> Dict[str, torch.Tensor]:
     """One layer's cache (``lead`` = (n_super,) for a stacked entry)."""
-    _require_ported(cfg, kind)
+    _check_kind(kind)
     hd = cfg.resolved_head_dim
     if kind == "attn":
         return kvcache.attn_cache_init(
@@ -340,12 +361,10 @@ class Transformer:
     def forward(
         self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B, S) integer; positions: (B, S). Returns (logits f32,
-        aux): aux sums the MoE layers' load-balancing losses (0 without
-        experts)."""
-        b, s = tokens.shape
-        if positions is None:
-            positions = torch.arange(s, device=tokens.device).expand(b, s)
+        """tokens: (B, S) integer; positions: (B, S), or (3, B, S) under
+        mrope (required there). Returns (logits f32, aux): aux sums the MoE
+        layers' load-balancing losses (0 without experts)."""
+        positions = _positions(self.cfg, tokens, positions)
         x = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p, _ in self._layers(params):
@@ -364,6 +383,7 @@ class Transformer:
         cache,
         token: torch.Tensor,  # (B,) integer
         cursor: torch.Tensor,  # (B,) int32 absolute position of this token
+        mrope_position: Optional[torch.Tensor] = None,  # (3, B, 1)
         active: Optional[torch.Tensor] = None,  # (B,) bool live-slot bitmap
     ) -> Tuple[torch.Tensor, Any]:
         """One-token decode: returns (logits (B, V) f32, cache). The cache
@@ -373,7 +393,12 @@ class Transformer:
         attention (the kernel skips all their KV tiles) and their logits
         are unspecified — the engine never reads them. ``None`` means
         every row is live. Recurrent states advance on every row.
+
+        Under mrope, ``mrope_position`` rotates this token's q and k; it
+        defaults to the cursor on all three streams, as in the reference.
         """
+        if self.cfg.rope_kind == "mrope" and mrope_position is None:
+            mrope_position = cursor[None, :, None].expand(3, cursor.shape[0], 1)
         x = self._embed(params, token[:, None])
         views = None  # full-cache positions and validity, shared by attn layers
         for kind, p, where in self._layers(params):
@@ -382,7 +407,7 @@ class Transformer:
                 _, _, kv_pos, valid = kvcache.attn_cache_views(layer_cache, cursor)
                 views = (kv_pos, valid)
             x = _apply_block_decode(
-                self.cfg, kind, p, x, cursor, layer_cache, active, views
+                self.cfg, kind, p, x, cursor, layer_cache, active, views, mrope_position
             )
         return self._logits(params, x)[:, 0], cache
 
@@ -390,13 +415,13 @@ class Transformer:
     def prefill(
         self, params, cache, tokens: torch.Tensor, positions=None
     ) -> Tuple[torch.Tensor, Any]:
-        """Left-aligned prefill: fills caches for positions [0, S) in place
-        and returns (last-token logits (B, V), cache)."""
-        b, s = tokens.shape
-        if positions is None:
-            positions = torch.arange(s, device=tokens.device).expand(b, s)
+        """Left-aligned prefill: fills caches for slots [0, S) in place and
+        returns (last-token logits (B, V), cache). Positions as in
+        ``forward``; K is cached rotated by them."""
+        positions = _positions(self.cfg, tokens, positions)
+        pos1d = positions if positions.dim() == 2 else positions[0]
         x = self._embed(params, tokens)
         for kind, p, where in self._layers(params):
             x, _, contrib = _apply_block_full(self.cfg, kind, p, x, positions, True)
-            _fill_from_prefill(kind, self._cache_view(cache, where), contrib, positions)
+            _fill_from_prefill(kind, self._cache_view(cache, where), contrib, pos1d)
         return self._logits(params, x[:, -1:])[:, 0], cache

@@ -650,3 +650,178 @@ def test_moe_engine_kernel_path_matches_dense_on_card(cuda, arch):
         torch.testing.assert_close(la[:3], lb[:3], atol=2e-3, rtol=2e-3)
     used = {n: ops.launch_counts()[n] - before[n] for n in before}
     assert used["decode_attention"] > 0 and used["flash_attention"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the generalised attention kernels: cross-attention, position-valued
+# masks, causal=False decode (whisper, qwen2-vl)
+# ---------------------------------------------------------------------------
+
+
+def _temporal_positions(cuda, b, s, gen):
+    """A Qwen2-VL temporal stream per row: text, an image whose tokens
+    share one position, then text; non-decreasing, starting at 0."""
+    rows = []
+    for _ in range(b):
+        n = int(torch.randint(1, max(2, s // 2), (1,), generator=gen))
+        p = int(torch.randint(0, s - n + 1, (1,), generator=gen))
+        g = int(torch.randint(1, 8, (1,), generator=gen))
+        row = torch.cat([torch.arange(p), torch.full((n,), p),
+                         p + g + torch.arange(s - p - n)])
+        rows.append(row)
+    return torch.stack(rows).to(torch.int32).to(cuda)
+
+
+# (B, S, S_kv, H, KV, D, causal, window, positions)
+GEN_FLASH_CASES = [
+    (2, 33, 150, 4, 4, 64, False, None, False),
+    (1, 100, 1437, 20, 20, 64, False, None, False),
+    (2, 1, 509, 8, 2, 128, False, None, False),
+    (3, 200, 64, 8, 8, 32, False, None, False),
+    (2, 300, 300, 8, 2, 128, True, None, True),
+    (2, 509, 509, 16, 4, 64, True, 40, True),
+    (1, 64, 64, 4, 4, 256, True, None, True),
+    (2, 130, 130, 4, 1, 16, False, 9, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GEN_FLASH_CASES,
+                         ids=lambda c: "B{}-S{}-Skv{}-H{}-KV{}-D{}-c{}-w{}-pos{}".format(*c))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_generalised_on_card(cuda, dtype, case):
+    """Flash attention with S_kv != S (non-causal) and with position-valued
+    masks against the plain version, bit-identical on a repeat, one launch
+    counted per call; arange positions read like none."""
+    b, s, skv, h, kv, d, causal, window, with_pos = case
+    gen = torch.Generator(device=cuda).manual_seed(s + skv + d)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, skv, kv, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, skv, kv, d), generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window)
+    if with_pos:
+        pos = _temporal_positions(cuda, b, s, torch.Generator().manual_seed(s))
+        kw.update(q_pos=pos, kv_pos=pos)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    again = ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == before + 2
+    assert torch.equal(got, again)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    if with_pos:
+        ar = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s).contiguous()
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, causal=causal, window=window, q_pos=ar, kv_pos=ar).float(),
+            ops.flash_attention(q, k, v, causal=causal, window=window).float(),
+            atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1500, 20, 1, 64), (3, 63, 2, 4, 16), (2, 448, 8, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_causal_false_on_card(cuda, dtype, shape):
+    """Decode with causal=False (cross-attention: every valid slot attends
+    whatever the cursor) against the plain version and the split twin, a
+    dead row exact 0; whisper's group of 1 (H = KV = 20, D = 64) first."""
+    b, s, kv, g, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(s + g)
+    q = torch.randn((b, 1, kv * g, d), generator=gen, device=cuda).to(dtype)
+    ck = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(dtype)
+    cv = torch.randn((b, s, kv, d), generator=gen, device=cuda).to(dtype)
+    cursor = torch.zeros(b, dtype=torch.int32, device=cuda)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s).contiguous()
+    active = torch.ones(b, dtype=torch.bool, device=cuda)
+    active[-1] = False
+    valid = (torch.rand((b, s), generator=gen, device=cuda) > 0.1) & active[:, None]
+    args = (q, ck, cv, cursor, pos, valid.contiguous(), active)
+    got = ops.decode_attention(*args, causal=False)
+    assert torch.equal(got, ops.decode_attention(*args, causal=False))
+    want = decode_attention_plain(*args, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    n_split = plan_splits(b, kv, s, torch.cuda.get_device_properties(cuda).multi_processor_count)[0]
+    twin = decode_attention_split_plain(*args, causal=False, n_split=n_split)
+    torch.testing.assert_close(got.float(), twin.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert float(got[-1].float().abs().max()) == 0.0
+    causal = ops.decode_attention(*args)
+    assert float((causal[:-1].float() - got[:-1].float()).abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+def test_encdec_kernel_path_matches_dense_on_card(cuda):
+    """Tiny whisper on the card, float32: forward and encode_for_decode +
+    decode (a dead row) on the kernel path against impl="dense", both
+    attention kernels launched."""
+    from repro_torch.models import model_for
+
+    cfg = tiny("whisper-large-v3")
+    m_k = model_for(cfg)
+    m_d = model_for(dataclasses.replace(cfg, impl="dense"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = m_k.init(gen, device=cuda)
+    frames = 0.1 * torch.randn((2, 40, cfg.d_model), generator=gen, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device=cuda)
+    active = torch.tensor([True, False], device=cuda)
+    before = ops.launch_counts()
+    lk, _ = m_k.forward(params, frames, toks)
+    ld, _ = m_d.forward(params, frames, toks)
+    torch.testing.assert_close(lk, ld, atol=2e-3, rtol=2e-3)
+    outs = []
+    for m in (m_k, m_d):
+        cache = m.encode_for_decode(params, frames, m.init_cache(2, 24, 40, device=cuda))
+        outs.append(torch.stack([m.decode_step(
+            params, cache, toks[:, t], torch.full((2,), t, dtype=torch.int32, device=cuda),
+            active=active)[0] for t in range(24)], 1))
+    torch.testing.assert_close(outs[0][:1], outs[1][:1], atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(outs[0][:1], lk[:1], atol=2e-3, rtol=2e-3)
+    used = {n: ops.launch_counts()[n] - before[n] for n in before}
+    assert used["flash_attention"] == 2 * cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert used["decode_attention"] == 2 * 24 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_mrope_kernel_path_matches_dense_on_card(cuda):
+    """Tiny qwen2-vl on the card, float32: forward on Qwen2-VL positions
+    and prefill + decode at the default mrope_position, the kernel path
+    against impl="dense"."""
+    from repro_torch.models import model_for
+
+    cfg = tiny("qwen2-vl-72b")
+    m_k = model_for(cfg)
+    m_d = model_for(dataclasses.replace(cfg, impl="dense"))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params = m_k.init(gen, device=cuda)
+    b, s = 2, 96
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 6), generator=gen, device=cuda)
+    t = _temporal_positions(cuda, b, s, torch.Generator().manual_seed(2))
+    pos = torch.stack([t, t + 1, t + 2])  # three streams; the mask reads the first
+    lk, _ = m_k.forward(params, toks[:, :s], pos)
+    ld, _ = m_d.forward(params, toks[:, :s], pos)
+    torch.testing.assert_close(lk, ld, atol=2e-3, rtol=2e-3)
+    outs = []
+    for m in (m_k, m_d):
+        cache = m.init_cache(b, s + 6, device=cuda)
+        steps = [m.prefill(params, cache, toks[:, :s], pos)[0]]
+        for i in range(6):
+            cur = torch.full((b,), s + i, dtype=torch.int32, device=cuda)
+            steps.append(m.decode_step(params, cache, toks[:, s + i], cur)[0])
+        outs.append(torch.stack(steps))
+    torch.testing.assert_close(outs[0], outs[1], atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_card(cuda, tmp_path):
+    """bf16 parameters on the card through an async save and a restore onto
+    the card: every leaf torch.equal, on the card, in bf16."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, leaf_paths
+    from repro_torch.models import model_for
+
+    cfg = tiny("whisper-large-v3", param_dtype="bfloat16")
+    params = model_for(cfg).init(torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, params)
+    mgr.wait()
+    out = mgr.restore(1, params, device=cuda)
+    for (na, a), (nb, b) in zip(leaf_paths(params), leaf_paths(out)):
+        assert na == nb and b.device == a.device and b.dtype == torch.bfloat16
+        assert torch.equal(a, b)

@@ -161,12 +161,18 @@ def test_entry_points_default_to_the_card(fn):
 
 
 def test_unported_kinds_raise_naming_the_roadmap():
-    # swa, rglru and rwkv blocks (tests/test_torch_recurrent.py) and MoE
-    # FFNs (tests/test_torch_moe.py) are ported; encoder-decoder models
-    # are not.
-    for arch in ("whisper-large-v3",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model_for(tiny(arch))
+    # Every block kind and both remaining architectures are ported now:
+    # an encoder-decoder config builds the encoder-decoder model, and an
+    # M-RoPE model refuses to run without its (3, B, S) positions.
+    from repro_torch.models import EncDecTransformer
+
+    assert isinstance(model_for(tiny("whisper-large-v3")), EncDecTransformer)
+    cfg = tiny("qwen2-vl-72b")
+    model = model_for(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.zeros((2, 5), dtype=torch.long)
+    with pytest.raises(ValueError, match="M-RoPE"):
+        model.forward(params, toks)
 
 
 # ---------------------------------------------------------------------------
