@@ -7,13 +7,13 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 
 1. device  — requires CUDA, prints the card's name and power limit,
              turns TF32 off for matmuls and cuDNN.
-2. build   — builds the four CUDA kernels from src/repro_torch/kernels/csrc
+2. build   — builds the five CUDA kernels from src/repro_torch/kernels/csrc
              with nvcc for sm_90a (one nvcc per source, in parallel),
              prints ptxas' register and spill lines and, from
              `cuobjdump -sass`, each library's count of tensor-core
              (HGMMA, HMMA) and async-copy (UTMALDG, LDGSTS) instructions;
-             fails unless flash_attention has HGMMA, decode_attention and
-             wkv6 (its chunked design) HMMA.
+             fails unless flash_attention has HGMMA, decode_attention,
+             wkv6 (its chunked design) and flash_attention_bwd HMMA.
 3. kernels — holds each kernel against its plain PyTorch version at the
              main path's shapes, in bf16 (2e-2) and float32 (2e-5): the
              two attention kernels at granite-3-2b's and recurrentgemma-
@@ -133,6 +133,29 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              on them and 32 decode steps at the default mrope_position,
              kernel against dense; on text-only positions, decode against
              the teacher-forced forward.
+16. train — training, the slice's main path. (a) The flash backward
+             kernel against its plain version on the kernel's own O and
+             LSE (and the forward's LSE against its plain one), two calls
+             torch.equal: granite-3-2b's training shape (B = 8, S = 1024,
+             H = 32, KV = 8, D = 64, causal) in bf16 (2e-2) and float32
+             (2e-5), whisper-large-v3's encoder (S = 1500, non-causal) and
+             decoder cross (S = 448, S_kv = 1500), qwen2-vl-72b's on the
+             mrope phase's position ids, each timed (CUDA-graph replays)
+             beside its plain version, the backward of one SDPA call
+             (eager) and its bound. (b) granite-3-2b at full width and
+             depth (40 layers, bf16, remat on), batch 8 x 1024 of seeded
+             Zipf tokens, 10 steps of make_train_step: finite losses, the
+             last three's mean below the first three's, and per step 80
+             flash forwards, 40 backward launches, none of the other
+             kernels; logs step ms, tokens/s, peak memory, every loss.
+             (c) 2 layers at full width: every gradient leaf through the
+             kernels against impl="dense" (2e-2 of the leaf's max abs);
+             the resume drill through CheckpointManager on a TrainState
+             (6 steps straight == 3 + save + restore + 3, torch.equal,
+             deterministic algorithms on); the launcher
+             (`python -m repro_torch.launch.train --tiny`) crashing at step
+             7 and resuming from step 5, its final state digest equal to
+             a straight run's.
 
 Each serving phase sets the kernel launch counts to 0 before it serves
 and reads them after, and fails unless every kernel of its path
@@ -143,7 +166,8 @@ with a row per kernel (`previous_ms`: the previous design's time, null
 for rglru_scan; the wkv6 row also has `b1_*` and `decode_*` times and
 bounds at (1, 512) and (8, 1); the two attention rows carry `shapes`,
 a record per timed whisper / qwen2-vl shape); the last line is the
-device record.
+device record. The flash_attention_bwd row's launches are the train
+phase's full-width run's.
 """
 from __future__ import annotations
 
@@ -152,6 +176,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -195,6 +220,8 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; fp32 FMA
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 L2_BYTES = 50 * 2**20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
+TRAIN_LR = 5e-4
 
 
 def log(msg: str) -> None:
@@ -983,6 +1010,8 @@ CALLS_PER_STEP = {
     RGEMMA: {"decode_attention": 12, "flash_attention": 0, "wkv6": 0, "rglru_scan": 26},
     MIXTRAL: {"decode_attention": 16, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
 }
+for _calls in CALLS_PER_STEP.values():  # decode never runs the backward kernel
+    _calls["flash_attention_bwd"] = 0
 
 
 def phase_graphs(torch, mid, seq, k=8, **overrides):
@@ -2466,6 +2495,326 @@ def phase_mrope(torch, report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training (granite-3-2b), the flash backward kernel
+# ---------------------------------------------------------------------------
+
+
+def bwd_case(torch, gen, dtype, b, s, skv, h, kv, d, causal, pos=None):
+    """The forward's log-sum-exp and the backward kernel against their plain
+    versions (the backward on the kernel's own O and LSE), and two backward
+    calls torch.equal. Returns (kernel inputs, mask kwargs, max abs err)."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels.ref import flash_attention_fwd_lse_plain
+
+    q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, skv, kv, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal) if pos is None else dict(causal=causal, q_pos=pos, kv_pos=pos)
+    name = str(dtype).split(".")[-1]
+    label = f"flash bwd B={b} S={s} S_kv={skv} H={h} KV={kv} D={d} causal={causal} {name}"
+    out, lse = fk.flash_attention_lse(q, k, v, **kw)
+    _, lse_p = flash_attention_fwd_lse_plain(q, k, v, **kw)
+    assert_close(f"{label} forward LSE", lse, lse_p, TOL[name])
+    del lse_p
+    got = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    want = fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g_name, g, a, w in zip(("dQ", "dK", "dV"), got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label}: two calls differ in {g_name}")
+        err = max(err, assert_close(f"{label} {g_name}", g, w, TOL[name]))
+    del got, again, want
+    return (q, k, v, out, do, lse), kw, err
+
+
+def time_bwd(torch, label, inp, kw, n_pairs, report_err, sdpa_kw):
+    """Device ms of the backward kernel (CUDA-graph replays over copies past
+    L2), its eager ms, the plain version's eager ms, and the backward of one
+    SDPA call on the same inputs (torch.autograd.grad on a retained graph,
+    eager, event-timed), with the bound: each input read and each output
+    written once, 10 D flops per (query, key) pair and head (five
+    products)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    q, k, v, out, do, lse = inp
+    esz = q.element_size()
+    inputs = copies(inp, (2 * q.numel() + 2 * k.numel() + out.numel()) * esz)
+    run_k = lambda *x: fb.flash_attention_bwd(*x, **kw)
+    run_p = lambda *x: fb.flash_attention_bwd_plain(*x, **kw)
+    ms = device_ms(run_k, inputs)
+    eager_ms = time_ms(run_k, inputs)
+    plain_ms = time_ms(run_p, inputs, iters=3, warmup=1)
+    lib = []
+    for q_, k_, v_, _o, do_, _l in inputs:
+        leaves = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q_, k_, v_)]
+        o_ = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+        lib.append((o_, leaves, do_.transpose(1, 2).contiguous()))
+    run_lib = lambda o_, leaves, do_: torch.autograd.grad(o_, leaves, do_, retain_graph=True)
+    library_ms = time_ms(run_lib, lib)
+    del lib
+    b, s, h, d = q.shape
+    nbytes = (4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4
+    flops = 10 * h * d * n_pairs
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"{label}: kernel {ms:.4f} ms (eager calls {eager_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"SDPA backward {library_ms:.4f} ms (eager), bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes} bytes, {flops} flops)")
+    return dict(shape=label, max_abs_err=report_err, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def backward_kernel_checks(torch, report):
+    """The backward kernel at the training path's shapes: granite-3-2b's
+    (B = 8, S = 1024, H = 32, KV = 8, D = 64, causal) in bf16 and float32,
+    whisper-large-v3's encoder (S = 1500, non-causal) and decoder cross
+    (S = 448, S_kv = 1500), qwen2-vl-72b's (B = 8, S = 512, H = 64, KV = 8,
+    D = 128) on the mrope phase's position ids; each against its plain
+    version, deterministic, and timed beside SDPA's backward."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    granite = (b, s, s, 32, 8, 64, True)
+    inp, kw, err32 = bwd_case(torch, gen, torch.float32, *granite)
+    log(f"flash bwd granite float32 B={b} S={s}: max_abs_err={err32:.3e}")
+    del inp
+    qpos = qwen_vl_positions(torch, 8, PREFILL_SEQ, [0, 17, 64, 100, 128, 200, 240, 253])[0]
+    qpos = qpos.contiguous()
+    cases = [
+        ("granite train", granite, None, dict(is_causal=True, enable_gqa=True)),
+        ("whisper encoder", (8, WHISPER_FRAMES, WHISPER_FRAMES, 20, 20, 64, False), None, {}),
+        ("whisper cross", (8, WHISPER_DEC_SLOTS, WHISPER_FRAMES, 20, 20, 64, False), None, {}),
+        ("qwen2-vl", (8, PREFILL_SEQ, PREFILL_SEQ, 64, 8, 128, True), qpos, None),
+    ]
+    records = []
+    for label, shape, pos, sdpa_kw in cases:
+        inp, kw, err = bwd_case(torch, gen, torch.bfloat16, *shape, pos=pos)
+        bb, ss, skv, causal = shape[0], shape[1], shape[2], shape[6]
+        if pos is not None:
+            mask = pos[:, None, :] <= pos[:, :, None]
+            n_pairs = int(mask.sum())
+            sdpa_kw = dict(attn_mask=mask[:, None], enable_gqa=True)
+        else:
+            n_pairs = bb * (ss * (ss + 1) // 2 if causal else ss * skv)
+        log(f"flash bwd {label} bf16 {tuple(shape)}: max_abs_err={err:.3e}, two calls equal")
+        records.append(time_bwd(torch, f"flash bwd {label} B={bb} S={ss} S_kv={skv} "
+                                f"H={shape[3]} KV={shape[4]} D={shape[5]} bf16",
+                                inp, kw, n_pairs, err, sdpa_kw))
+        del inp
+        gc.collect()
+        torch.cuda.empty_cache()
+    main = records[0]
+    report["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:148",
+        gradient_of="src/repro/models/attention.py:117",
+        max_abs_err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=main["library_ms"],
+        previous_ms=None, f32_max_abs_err=err32, shape=main["shape"], shapes=records[1:])
+
+
+def train_batch(torch, data, i):
+    return {k: torch.from_numpy(v).to("cuda") for k, v in data.batch(i).items()}
+
+
+def train_full_width(torch, report):
+    """granite-3-2b at full width and depth (40 layers, bf16, remat on),
+    batch 8 x 1024 of seeded Zipf tokens, TRAIN_STEPS steps of
+    make_train_step: every loss finite, the last three's mean below the
+    first three's, and per step 80 flash forwards (remat runs each twice),
+    40 backward launches and none of the other kernels. This is the
+    slice's main path: its launch counts are the kernels line's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_for
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+
+    cfg = get_config(MID)
+    model = model_for(cfg)
+    state = train_loop.init_state(model, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    state_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    tcfg = train_loop.TrainConfig(adamw=opt.AdamWConfig(
+        peak_lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS))
+    step = train_loop.make_train_step(model, tcfg)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    log(f"train {MID}: {cfg.n_layers} layers, remat={cfg.remat}, {n_params} parameters "
+        f"({cfg.param_dtype}); params + m + v {state_bytes} bytes; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, peak lr {TRAIN_LR}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        batch = train_batch(torch, data, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        log(f"train step {i}: loss {loss:.6f}, grad norm {float(met['grad_norm']):.4f}, lr "
+            f"{float(met['lr']):.3e}, {times[-1]:.3f} ms")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: a non-finite loss in {losses}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        raise AssertionError(f"train: loss did not descend ({first:.4f} -> {last:.4f})")
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+            "decode_attention": 0, "wkv6": 0, "rglru_scan": 0}
+    if per_step != want:
+        raise AssertionError(f"train: launches per step {per_step}, expected {want}")
+    med = sorted(times[2:])[len(times[2:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops6 = 6 * n_params * tokens
+    log(f"train {MID} full width: median step {med:.3f} ms after 2 warm-up steps, "
+        f"{tokens / med * 1e3:.1f} tokens/s, peak {peak} bytes ({peak / 1e9:.3f} GB); losses "
+        f"{json.dumps(losses)}; mean of first 3 {first:.6f} -> last 3 {last:.6f}; launches "
+        f"per step {json.dumps(per_step)}; 6 N tokens = {flops6} flops a step, "
+        f"{flops6 / med / 1e9:.1f} TFLOP/s achieved, bound "
+        f"{flops6 / PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms")
+    report["flash_attention_bwd"]["launches"] = launches["flash_attention_bwd"]
+    report["train"] = dict(n_params=n_params, state_bytes=state_bytes, losses=losses,
+                           step_ms=times, median_step_ms=med, tokens_per_s=tokens / med * 1e3,
+                           peak_bytes=peak, launches=launches, launches_per_step=per_step)
+    del state, step, batch, met
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_two_layers(torch, report):
+    """granite-3-2b at full width, 2 layers, bf16: every parameter leaf's
+    gradient through the kernels against impl="dense" (each leaf's max abs
+    difference within 2e-2 of that leaf's max abs); the resume drill
+    through CheckpointManager on a TrainState (6 steps straight against 3,
+    save, restore, 3 more: torch.equal on every leaf) under
+    torch.use_deterministic_algorithms(True)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, leaf_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_for
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+
+    cfg = get_config(MID, n_layers=2)
+    mk, md = model_for(cfg), model_for(dataclasses.replace(cfg, impl="dense"))
+    init = lambda: train_loop.init_state(mk, torch.Generator(device="cuda").manual_seed(2),
+                                         device="cuda")
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1))
+    state = init()
+    toks = train_batch(torch, data, 0)["tokens"]
+    leaves = tree_leaves(state.params)
+    gk = torch.autograd.grad(mk.loss(state.params, toks), leaves)
+    gd = torch.autograd.grad(md.loss(state.params, toks), leaves)
+    worst = 0.0
+    for (name, _), a, w in zip(leaf_paths(state.params), gk, gd):
+        scale = w.float().abs().max().item()
+        err = (a.float() - w.float()).abs().max().item()
+        if not err <= 2e-2 * scale:
+            raise AssertionError(f"train: gradient {name} kernel vs dense {err:.3e} > 2e-2 x "
+                                 f"{scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"train {MID} x2 bf16: every gradient leaf ({len(gk)}) kernel vs dense within "
+        f"{worst:.3e} of its max abs (tolerance 2e-2)")
+    del gk, gd, state
+
+    tcfg = train_loop.TrainConfig(adamw=opt.AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                                        total_steps=10))
+    step = train_loop.make_train_step(mk, tcfg)
+
+    def run(st, lo, hi):
+        for i in range(lo, hi):
+            st, _ = step(st, train_batch(torch, data, i))
+        return st
+
+    ckdir = ROOT / "build" / "chip_smoke_train_checkpoint"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = run(init(), 0, 6)
+        half = run(init(), 0, 3)
+        mgr = CheckpointManager(str(ckdir), keep=1)
+        mgr.save(3, half)
+        mgr.wait()
+        restored = mgr.restore(3, init(), device="cuda")
+        train_loop.trainable(restored.params)
+        resumed = run(restored, 3, 6)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, r = leaf_paths(straight), leaf_paths(resumed)
+    if [n for n, _ in a] != [n for n, _ in r] or ".opt.step" not in dict(a):
+        raise AssertionError("train resume: leaf names differ")
+    for (name, x), (_, y) in zip(a, r):
+        if not torch.equal(x, y):
+            raise AssertionError(f"train resume: leaf {name} differs from the straight run")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"train resume drill {MID} x2: 6 steps straight == 3 + save + restore + 3, "
+        f"torch.equal on all {len(a)} leaves (deterministic algorithms on)")
+    report["train"].update(kernel_vs_dense_worst=worst, resume_leaves=len(a))
+
+
+def train_launcher_drill(torch):
+    """python -m repro_torch.launch.train --tiny on the card: crash at step 7,
+    resume from the step-5 checkpoint, finish; a straight run beside it."""
+    import os
+    import shutil
+
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--tiny", "--steps", "12",
+            "--batch", "2", "--seq", "32", "--ckpt-every", "5"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dirs = [ROOT / "build" / f"chip_smoke_launcher_{n}" for n in ("drill", "straight")]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+
+    def run(args):
+        return subprocess.run(base + args, capture_output=True, text=True, env=env,
+                              cwd=str(ROOT), timeout=300)
+
+    r1 = run(["--ckpt-dir", str(dirs[0]), "--fail-at", "7"])
+    if r1.returncode == 0 or "simulated failure at step 7" not in r1.stdout + r1.stderr:
+        raise AssertionError(f"launcher: no simulated failure: {r1.stdout[-800:]} "
+                             f"{r1.stderr[-800:]}")
+    r2 = run(["--ckpt-dir", str(dirs[0])])
+    if r2.returncode != 0 or "resuming from checkpoint step 5" not in r2.stdout:
+        raise AssertionError(f"launcher: resume failed: {r2.stdout[-800:]} {r2.stderr[-1500:]}")
+    r3 = run(["--ckpt-dir", str(dirs[1])])
+    if r3.returncode != 0:
+        raise AssertionError(f"launcher: straight run failed: {r3.stderr[-1500:]}")
+    digest = lambda out: [ln for ln in out.splitlines() if ln.startswith("final state digest")]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    if len(digest(r2.stdout)) != 1 or digest(r2.stdout) != digest(r3.stdout):
+        raise AssertionError(f"launcher: resumed {digest(r2.stdout)} != straight "
+                             f"{digest(r3.stdout)}")
+    log("launcher drill on the card: crashed at step 7, resumed from step 5, finished, its "
+        "final state digest equal to a straight run's\n  "
+        + "\n  ".join(r2.stdout.strip().splitlines()[-4:]))
+
+
+def phase_train(torch, report):
+    backward_kernel_checks(torch, report)
+    train_full_width(torch, report)
+    train_two_layers(torch, report)
+    train_launcher_drill(torch)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2485,6 +2834,9 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU")
+    # cuBLAS's deterministic workspace, for the train phase's resume drill
+    # under torch.use_deterministic_algorithms (read before cuBLAS starts).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build  # fails outside the repository
 
@@ -2509,7 +2861,7 @@ def main() -> int:
             counts = sass_counts(path)
             log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
             need = {"flash_attention": "HGMMA", "decode_attention": "HMMA",
-                    "wkv6": "HMMA"}.get(name)
+                    "wkv6": "HMMA", "flash_attention_bwd": "HMMA"}.get(name)
             if need and counts[need] < 1:
                 raise AssertionError(f"{name}: no {need} in its SASS")
     with Phase("kernels"):
@@ -2530,7 +2882,8 @@ def main() -> int:
                              deadline_factor=6.0)
         log("served multitenant: " + json.dumps(served, sort_keys=True))
         for name, n in served["launches_serving"].items():
-            report[name]["launches"] = n
+            if name in report:  # the served kernels' rows; the backward's comes from train
+                report[name]["launches"] = n
     with Phase("serve_chunked"):
         served = phase_serve(torch, DECODE_SEQ, {"decode": 2, "prefill": 1}, frames=8,
                              deadline_factor=6.0, chunk_depth=8)
@@ -2549,12 +2902,14 @@ def main() -> int:
         phase_encdec(torch, report)
     with Phase("mrope"):
         phase_mrope(torch, report)
+    with Phase("train"):
+        phase_train(torch, report)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")
-    names = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
+    names = ("decode_attention", "flash_attention", "flash_attention_bwd", "wkv6", "rglru_scan")
     extra = ("b1_ms", "b1_previous_ms", "b1_bound_ms", "decode_ms", "decode_previous_ms",
-             "decode_bound_ms", "shapes")
+             "decode_bound_ms", "gradient_of", "f32_max_abs_err", "shapes")
     rows = [{k: report[n][k] for k in keys + extra if k in keys or k in report[n]}
             for n in names]
     log(f"total run time {time.perf_counter() - T_START:.3f} s")

@@ -9,9 +9,11 @@ checkpoint written by either package restores in the other):
         leaf_00000.npy ...
 
 - **Leaf names** are ``jax.tree_util.keystr`` of each leaf's path
-  (``"['decoder']['self_attn']['wq']"``, ``"['super'][0]['mixer']['wq']"``),
+  (``"['decoder']['self_attn']['wq']"``, ``"['super'][0]['mixer']['wq']"``;
+  a NamedTuple's fields by attribute, as ``TrainState``'s
+  ``".params['embed']"``, ``".opt.step"``, ``".opt.m['embed']"``),
   computed here without JAX; leaves are numbered in JAX's flatten order
-  (dict keys sorted, lists in order).
+  (dict keys sorted, lists, tuples and NamedTuple fields in order).
 - **bfloat16** leaves are written as the reference writes them: a raw
   ``<V2`` ``.npy`` whose manifest dtype is ``"bfloat16"``. They are read
   back from their raw bytes as ``torch.bfloat16``, with no ``ml_dtypes``.
@@ -49,6 +51,8 @@ def _walk(tree: Any, fn: Callable[[str, Any], Any], path: str = "") -> Any:
         for k in sorted(tree):
             out[k] = _walk(tree[k], fn, f"{path}[{k!r}]")
         return {k: out[k] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(_walk(getattr(tree, f), fn, f"{path}.{f}") for f in tree._fields))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_walk(v, fn, f"{path}[{i}]") for i, v in enumerate(tree))
     if tree is None:  # an empty subtree to JAX
@@ -87,11 +91,10 @@ def _save_leaf(path: str, arr) -> Tuple[List[int], str]:
 
 
 def _load_leaf(path: str, dtype: str) -> torch.Tensor:
-    arr = np.load(path)
+    arr = np.array(np.load(path), order="C")  # a copy; a () leaf stays ()
     if dtype == BF16:  # raw 2-byte records: reinterpret their bits
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy())
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class CheckpointManager:

@@ -1,4 +1,5 @@
-"""Parameter conversion between the JAX package's trees and the port's.
+"""Conversion of parameter trees and train states between the JAX
+package's trees and the port's.
 
 ``params_from_numpy(cfg, tree)`` takes the parameter tree that
 ``repro``'s ``model.init(key)`` returns (a decoder-only ``Transformer``'s
@@ -11,7 +12,9 @@ llama4's shared MLP among them), as tensors. numpy has no bfloat16 of its own (J
 an extension dtype named ``bfloat16``), so those leaves travel through
 float32 — exact, since every bf16 value is a float32 value — and are
 cast back. ``params_to_numpy`` goes the other way, bf16 leaves coming
-back as float32.
+back as float32. ``train_state_from_numpy`` and ``train_state_to_numpy``
+carry a whole JAX ``TrainState`` (the parameters and AdamW's step, m and
+v) the same way, so both packages step from one state.
 """
 from __future__ import annotations
 
@@ -70,3 +73,29 @@ def params_to_numpy(params: Any) -> Any:
         return t.numpy()
 
     return map_tree(conv, params)
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: Any, device="cuda"):
+    """A JAX ``TrainState`` (params, opt = (step, m, v)) with numpy leaves
+    as the port's ``TrainState``: parameters as in ``params_from_numpy``,
+    made trainable; m and v float32 trees of the same structure; step a ()
+    int32 tensor. Both packages then step from the same state."""
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train_loop import TrainState, trainable
+
+    params, (step, m, v) = state
+    params = trainable(params_from_numpy(cfg, params, device))
+    f32 = lambda tree: map_tree(lambda a: _leaf_to_tensor(a, device).float(), tree)
+    _zip_check(encdec.model_spec(cfg) if cfg.encdec else transformer.model_spec(cfg), m)
+    _zip_check(encdec.model_spec(cfg) if cfg.encdec else transformer.model_spec(cfg), v)
+    step = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device)
+    return TrainState(params=params, opt=AdamWState(step=step, m=f32(m), v=f32(v)))
+
+
+def train_state_to_numpy(state: Any):
+    """The port's ``TrainState`` as (params, (step, m, v)) of numpy arrays
+    (bf16 leaves as float32); the caller rebuilds JAX's ``TrainState`` and
+    ``AdamWState`` from them."""
+    params, (step, m, v) = state
+    return (params_to_numpy(params),
+            (np.asarray(int(step), dtype=np.int32), params_to_numpy(m), params_to_numpy(v)))

@@ -61,6 +61,12 @@
 //     future or wholly outside the window are never loaded, and a
 //     warpgroup skips the block's tiles its own rows do not need.
 //
+// Both routes (and `kPos`) also write, when given a non-null `lse`, the
+// float32 log-sum-exp of each query row, (B, H, S), natural log: m + log(l)
+// of the online softmax with the same l >= 1e-30 clamp. The backward
+// (csrc/flash_attention_bwd.cu) recomputes P from it. The serving path
+// passes null and writes nothing more.
+//
 // float32 — `flash_fma_kernel<float>`, the first port's design: a full
 // float32 product has no tensor-core instruction and TF32 would break the
 // reference's 2e-5 tolerance. One block of 256 threads per (b, h, 64-query
@@ -100,6 +106,7 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
     const T* __restrict__ k,  // (B, S_kv, KV, D)
     const T* __restrict__ v,  // (B, S_kv, KV, D)
     T* __restrict__ out,      // (B, S, H, D)
+    float* __restrict__ lse,  // (B, H, S) or null
     const int32_t* __restrict__ qpos,  // (B, S) or null = arange
     const int32_t* __restrict__ kpos,  // (B, S_kv) or null = arange
     int S, int Skv, int H, int KV, int D, int causal, int window, float scale) {
@@ -242,6 +249,7 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
     const int qi = q_lo + ty * 4 + r;
     if (qi >= S) continue;
     const float lc = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[((size_t)b * H + h) * S + qi] = m[r] + logf(lc);
     T* orow = out + ((size_t)b * S + qi) * qrow + (size_t)h * D;
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
@@ -253,6 +261,7 @@ __global__ void __launch_bounds__(kThreads) flash_fma_kernel(
 
 // The shape and mask arguments every launch takes.
 struct Shape {
+  float* lse;                  // (B, H, S) or null
   const int32_t *qpos, *kpos;  // null = arange
   int B, S, Skv, H, KV, D, causal, window;
   float scale;
@@ -270,7 +279,8 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, const Sha
   dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   flash_fma_kernel<T, NI><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), a.qpos, a.kpos, S, a.Skv, H, a.KV, D, a.causal, a.window, a.scale);
+      static_cast<T*>(out), a.lse, a.qpos, a.kpos, S, a.Skv, H, a.KV, D, a.causal, a.window,
+      a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -404,6 +414,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
     const bf16* __restrict__ k,  // (B, S_kv, KV, D)
     const bf16* __restrict__ v,  // (B, S_kv, KV, D)
     bf16* __restrict__ out,      // (B, S, H, D)
+    float* __restrict__ lse,     // (B, H, S) or null
     const int32_t* __restrict__ qpos,  // (B, S), read when kPos
     const int32_t* __restrict__ kpos,  // (B, S_kv), read when kPos
     int S, int Skv, int H, int KV, int D, int causal, int window, float scale_log2) {
@@ -607,6 +618,9 @@ __global__ void __launch_bounds__(kFlashThreads, 1) flash_wgmma_kernel(
   for (int i = 0; i < 2; ++i) {
     const int qi = row0 + 8 * i;
     if (qi >= S) continue;
+    // m is in log2 units (scores scaled by scale * log2 e).
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((size_t)b * H + h) * S + qi] = (m[i] + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
     bf16* orow = out + ((size_t)b * S + qi) * qrow + (size_t)h * D;
 #pragma unroll
     for (int c = 0; c < NB; ++c)
@@ -632,7 +646,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, const S
   dim3 grid(a.H, a.B, (a.S + 2 * kBlockQ - 1) / (2 * kBlockQ));
   flash_wgmma_kernel<DP, kPos><<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), a.qpos, a.kpos, a.S, a.Skv, a.H, a.KV, a.D, a.causal, a.window,
+      static_cast<bf16*>(out), a.lse, a.qpos, a.kpos, a.S, a.Skv, a.H, a.KV, a.D, a.causal,
+      a.window,
       a.scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -655,13 +670,14 @@ bool bad_shape(const Shape& a) {
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel). qpos /
 // kpos: int32 (B, S) / (B, S_kv) mask positions, or both null for arange.
-// causal: 0/1. window <= 0 means none. Returns the launch's
-// cudaGetLastError() (0 on success).
+// causal: 0/1. window <= 0 means none. lse: float32 (B, H, S), or null to
+// write none. Returns the launch's cudaGetLastError() (0 on success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* out, const void* qpos, const void* kpos, int B,
-                                   int S, int Skv, int H, int KV, int D, int causal,
+                                   void* out, void* lse, const void* qpos, const void* kpos,
+                                   int B, int S, int Skv, int H, int KV, int D, int causal,
                                    int window, float scale, void* stream) {
-  const Shape a{static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
+  const Shape a{static_cast<float*>(lse), static_cast<const int32_t*>(qpos),
+                static_cast<const int32_t*>(kpos),
                 B, S, Skv, H, KV, D, causal, window, scale};
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -677,11 +693,12 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
 // template, here at either dtype), kept for side-by-side timing only. Same
 // arguments as flash_attention_fwd.
 extern "C" int flash_attention_fma_fwd(int dtype, const void* q, const void* k,
-                                       const void* v, void* out, const void* qpos,
+                                       const void* v, void* out, void* lse, const void* qpos,
                                        const void* kpos, int B, int S, int Skv, int H, int KV,
                                        int D, int causal, int window, float scale,
                                        void* stream) {
-  const Shape a{static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
+  const Shape a{static_cast<float*>(lse), static_cast<const int32_t*>(qpos),
+                static_cast<const int32_t*>(kpos),
                 B, S, Skv, H, KV, D, causal, window, scale};
   if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -8,6 +8,13 @@ kernel is held against. ``launches`` counts kernel launches. A bf16
 tensor runs the tensor-core (wgmma) kernel, a float32 one the FMA kernel:
 a rule by dtype, not a fallback.
 
+Gradients: when autograd is recording and q, k or v requires a gradient,
+``flash_attention`` runs ``FlashAttentionFn``: its forward is the same
+kernel writing the log-sum-exp as well (float32 (B, H, S)) and saves Q, K,
+V, O and LSE; its backward is the hand-written backward kernel
+(``flash_attention_bwd.py``, counted there). Otherwise the call writes no
+log-sum-exp and saves nothing, so serving is unchanged.
+
 Without positions they are arange (left-aligned prefill); keys at or
 past ``S_kv`` do not exist, a causal query attends to keys ``<=`` its
 position, a window of ``w`` keeps keys ``> position - w``. Optional int32
@@ -33,6 +40,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention_bwd as _bwd
 from repro_torch.kernels.decode_attention import _check
 from repro_torch.kernels.ref import check_flash_masks
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
@@ -46,7 +54,7 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -59,8 +67,9 @@ def _fn(symbol: str):
     return fn
 
 
-def _launch(symbol, q, k, v, causal, window, q_pos=None, kv_pos=None) -> torch.Tensor:
-    """Check the arguments and run one call of the C entry point ``symbol``."""
+def _launch(symbol, q, k, v, causal, window, q_pos=None, kv_pos=None, with_lse=False):
+    """Check the arguments and run one call of the C entry point ``symbol``;
+    returns (out, the float32 (B, H, S) log-sum-exp or None)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES:
@@ -89,15 +98,40 @@ def _launch(symbol, q, k, v, causal, window, q_pos=None, kv_pos=None) -> torch.T
         _check("q_pos", q_pos, (b, s), torch.int32, dev)
         _check("kv_pos", kv_pos, (b, skv), torch.int32, dev)
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) if with_lse else None
     err = _fn(symbol)(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q_pos.data_ptr() if use_pos else None, kv_pos.data_ptr() if use_pos else None,
+        lse.data_ptr() if with_lse else None, q_pos.data_ptr() if use_pos else None,
+        kv_pos.data_ptr() if use_pos else None,
         b, s, skv, h, kv, d, int(bool(causal)), 0 if window is None else int(window),
         1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
-    return out
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel with a gradient: forward with the log-sum-exp, backward
+    by the backward kernel from the saved Q, K, V, O and LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_pos, kv_pos):
+        global launches
+        out, lse = _launch(SYMBOL, q, k, v, causal, window, q_pos, kv_pos, with_lse=True)
+        launches += 1
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos)
+        ctx.mask = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_pos, kv_pos = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = _bwd.flash_attention_bwd(
+            q, k, v, out, do.contiguous(), lse, causal=causal, window=window, q_pos=q_pos,
+            kv_pos=kv_pos)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -110,9 +144,12 @@ def flash_attention(
     q_pos: Optional[torch.Tensor] = None,  # (B, S) int32
     kv_pos: Optional[torch.Tensor] = None,  # (B, S_kv) int32
 ) -> torch.Tensor:
-    """Launch the CUDA kernel. CUDA tensors only: raises otherwise."""
+    """Launch the CUDA kernel. CUDA tensors only: raises otherwise. Through
+    ``FlashAttentionFn`` when a gradient is required of q, k or v."""
     global launches
-    out = _launch(SYMBOL, q, k, v, causal, window, q_pos, kv_pos)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_pos, kv_pos)
+    out, _ = _launch(SYMBOL, q, k, v, causal, window, q_pos, kv_pos)
     launches += 1
     return out
 
@@ -124,7 +161,14 @@ def previous_design(q, k, v, *, causal=True, window=None) -> torch.Tensor:
     calls it."""
     if k.shape[1] != q.shape[1]:
         raise ValueError("previous_design takes S_kv == S only")
-    return _launch(PREVIOUS_SYMBOL, q, k, v, causal, window)
+    return _launch(PREVIOUS_SYMBOL, q, k, v, causal, window)[0]
 
 
-__all__ = ["flash_attention", "flash_attention_plain", "launches"]
+def flash_attention_lse(q, k, v, *, causal=True, window=None, q_pos=None, kv_pos=None):
+    """(out, log-sum-exp) from one kernel call, as ``FlashAttentionFn``'s
+    forward makes them; for holding the log-sum-exp against its plain
+    version. Not counted in ``launches``; ``ops`` never calls it."""
+    return _launch(SYMBOL, q, k, v, causal, window, q_pos, kv_pos, with_lse=True)
+
+
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_plain", "launches"]

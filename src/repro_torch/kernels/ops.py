@@ -5,6 +5,13 @@ CUDA tensor goes to the hand-written Hopper kernel, a CPU tensor to the
 kernel's plain PyTorch version; anything else raises. There is no
 fallback: a CUDA tensor either launches the kernel or the call raises.
 This replaces the JAX package's interpret-mode switch.
+
+Gradients: on the CPU every plain version is differentiable by autograd.
+On the card, flash attention has a backward kernel
+(``flash_attention.FlashAttentionFn``); ``decode_attention``, ``wkv6`` and
+``rglru_scan`` have none yet and raise a ``RuntimeError`` when autograd
+is recording and an input requires a gradient, rather than give a loss
+that no gradient flows back through (a plain version never stands in).
 """
 from __future__ import annotations
 
@@ -14,12 +21,14 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import wkv6 as _wkv6
 
 _KERNELS = {
     "decode_attention": _decode,
     "flash_attention": _flash,
+    "flash_attention_bwd": _flash_bwd,
     "wkv6": _wkv6,
     "rglru_scan": _rglru,
 }
@@ -31,6 +40,24 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {t.device}")
+
+
+# Why a kernel without a backward refuses a gradient on the card.
+_NO_BACKWARD = {
+    "decode_attention": "decode_attention has no backward kernel: training never decodes",
+    "wkv6": "wkv6 has no backward kernel yet (ROADMAP.md §A: the wkv6 and rglru_scan "
+            "backward kernels are the next slice)",
+    "rglru_scan": "rglru_scan has no backward kernel yet (ROADMAP.md §A: the wkv6 and "
+                  "rglru_scan backward kernels are the next slice)",
+}
+
+
+def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would need the gradient of a kernel that has no
+    backward: recording, and an input requires a gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{_NO_BACKWARD[name]}; a gradient was required of it on the card "
+                           "(run under torch.no_grad(), or on CPU tensors)")
 
 
 def flash_attention(
@@ -63,7 +90,11 @@ def decode_attention(
     window: Optional[int] = None,
     causal: bool = True,
 ) -> torch.Tensor:
-    fn = _decode.decode_attention if _on_cuda(q) else _decode.decode_attention_plain
+    if _on_cuda(q):
+        _refuse_grad("decode_attention", q, cache_k, cache_v)
+        fn = _decode.decode_attention
+    else:
+        fn = _decode.decode_attention_plain
     return fn(q, cache_k, cache_v, cursor, kv_pos, kv_valid, active, window=window,
               causal=causal)
 
@@ -74,6 +105,7 @@ def rglru_scan(
     h0: Optional[torch.Tensor] = None,  # (B, D) float32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     if _on_cuda(a):
+        _refuse_grad("rglru_scan", a, b, h0)
         return _rglru.rglru_scan(a, b, h0)
     return _rglru.rglru_scan_plain(a, b, h0)
 
@@ -91,6 +123,7 @@ def wkv6(
     """``state_out`` (optional, may be ``state``) receives the last state
     in place: the kernel writes it there directly, the plain path copies."""
     if _on_cuda(r):
+        _refuse_grad("wkv6", r, k, v, w, u, state)
         return _wkv6.wkv6(r, k, v, w, u, state, state_out=state_out)
     return _wkv6.wkv6_plain(r, k, v, w, u, state, state_out=state_out)
 

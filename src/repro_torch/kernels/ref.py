@@ -8,6 +8,11 @@ against them on the card. All arithmetic is float32; outputs take the
 dtype of the first input (the query, ``r`` or ``a``), carried states are
 float32.
 
+``flash_attention_fwd_lse_plain`` adds the log-sum-exp the flash
+forward writes for its backward, and ``flash_attention_bwd_plain`` is
+the backward kernel's FlashAttention-2 recurrences written out (not
+autograd); float64 inputs keep float64 in the flash functions, so the
+CPU tests can compare algorithms without float32 summation order.
 ``decode_attention_split_plain`` is the plain twin of the decode
 kernel's two passes (per-split partials, then their combine in split
 order); ``wkv6_chunked_plain`` is the plain twin of the chunked wkv6
@@ -35,6 +40,43 @@ def check_nondecreasing(name: str, pos: torch.Tensor) -> None:
         raise ValueError(f"{name} must be non-decreasing along S under a causal mask")
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the flash functions' arithmetic type: float32, or float64
+    for float64 inputs (which the CPU tests use to compare algorithms
+    without float32 summation order)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _flash_logits(q, k, v, causal, window, q_pos, kv_pos):
+    """The flash functions' shared front: the argument checks, then the
+    scaled logits (B, KV, G, S, S_kv) in ``_acc``'s type and the mask (B,
+    1, 1, S, S_kv)."""
+    b, s, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    check_flash_masks(s, skv, causal, window, q_pos, kv_pos)
+    if causal and q_pos is not None:
+        check_nondecreasing("q_pos", q_pos)
+        check_nondecreasing("kv_pos", kv_pos)
+        if bool((kv_pos[:, 0] > q_pos[:, 0]).any()):
+            raise ValueError("under a causal mask every query needs a key at or before it: "
+                             "kv_pos[:, 0] <= q_pos[:, 0]")
+    qg = _acc(q.reshape(b, s, kv, g, d))
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, _acc(k)) / math.sqrt(d)
+    if q_pos is None:
+        qp = torch.arange(s, device=q.device).expand(b, s)
+        kp = torch.arange(skv, device=q.device).expand(b, skv)
+    else:
+        qp, kp = q_pos.long(), kv_pos.long()
+    qp, kp = qp[:, :, None], kp[:, None, :]
+    mask = torch.ones((b, s, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return logits, mask[:, None, None]
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, S_kv, KV, D)
@@ -52,32 +94,81 @@ def flash_attention_ref(
     positions must be non-decreasing along S with ``kv_pos[:, 0] <=
     q_pos[:, 0]``, the flash kernel's precondition (checked here)."""
     b, s, h, d = q.shape
+    logits, mask = _flash_logits(q, k, v, causal, window, q_pos, kv_pos)
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, _acc(v))
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def flash_attention_fwd_lse_plain(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S_kv, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_pos: Optional[torch.Tensor] = None,
+    kv_pos: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_ref``'s output and the log-sum-exp the kernel's
+    forward writes for its backward: (B, H, S) in float32 (float64 for
+    float64 inputs), natural log,
+    ``m + log(max(l, 1e-30))`` over each query's scaled logits (masked
+    ones at -1e30, so they add nothing)."""
+    b, s, h, d = q.shape
+    logits, mask = _flash_logits(q, k, v, causal, window, q_pos, kv_pos)
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    lse = m + torch.log(torch.clamp(p.sum(dim=-1), min=1e-30))  # (B, KV, G, S)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p / p.sum(-1, keepdim=True).clamp(min=1e-30),
+                       _acc(v))
+    return out.reshape(b, s, h, d).to(q.dtype), lse.reshape(b, h, s)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S_kv, KV, D)
+    v: torch.Tensor,
+    o: torch.Tensor,  # (B, S, H, D) the forward's output
+    do: torch.Tensor,  # (B, S, H, D) the gradient of o
+    lse: torch.Tensor,  # (B, H, S) float32, the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_pos: Optional[torch.Tensor] = None,
+    kv_pos: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) in the inputs' dtype: the backward kernel's
+    FlashAttention-2 recurrences written out, not autograd.
+
+    - Delta = rowsum(dO * O) in float32;
+    - P = exp(S - LSE) from the saved log-sum-exp, 0 where masked;
+    - dV = sum over the group's heads of P^T dO;
+    - dP = dO V^T, dS = P * (dP - Delta);
+    - dQ = scale dS K, dK = scale * (sum over the group's heads) dS^T Q.
+
+    On bfloat16 inputs P is rounded to bfloat16 before dV and dS before
+    dQ and dK, as the kernel's tensor-core operands are; in float32
+    nothing is rounded."""
+    b, s, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
-    check_flash_masks(s, skv, causal, window, q_pos, kv_pos)
-    if causal and q_pos is not None:
-        check_nondecreasing("q_pos", q_pos)
-        check_nondecreasing("kv_pos", kv_pos)
-        if bool((kv_pos[:, 0] > q_pos[:, 0]).any()):
-            raise ValueError("under a causal mask every query needs a key at or before it: "
-                             "kv_pos[:, 0] <= q_pos[:, 0]")
-    qg = q.reshape(b, s, kv, g, d).float()
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(d)
-    if q_pos is None:
-        qp = torch.arange(s, device=q.device).expand(b, s)
-        kp = torch.arange(skv, device=q.device).expand(b, skv)
-    else:
-        qp, kp = q_pos.long(), kv_pos.long()
-    qp, kp = qp[:, :, None], kp[:, None, :]
-    mask = torch.ones((b, s, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kp <= qp
-    if window is not None:
-        mask &= kp > qp - window
-    logits = torch.where(mask[:, None, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    logits, mask = _flash_logits(q, k, v, causal, window, q_pos, kv_pos)
+    lse_g = lse.to(logits.dtype).reshape(b, kv, g, s)
+    p = torch.where(mask, torch.exp(logits - lse_g[..., None]), 0.0)  # (B, KV, G, S, S_kv)
+    low = q.dtype not in (torch.float32, torch.float64)
+    rnd = (lambda x: x.to(q.dtype).float()) if low else (lambda x: x)
+    dog = _acc(do.reshape(b, s, kv, g, d))
+    delta = (dog * _acc(o.reshape(b, s, kv, g, d))).sum(-1).permute(0, 2, 3, 1)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", rnd(p), dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, _acc(v))
+    ds = rnd(p * (dp - delta[..., None]))
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, _acc(k)) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, _acc(q.reshape(b, s, kv, g, d))) * scale
+    return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def check_flash_masks(s: int, skv: int, causal: bool, window, q_pos, kv_pos) -> None:

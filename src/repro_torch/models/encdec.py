@@ -20,6 +20,12 @@ attentions. On the kernel path the encoder's, the decoder's and the
 cross-attention's full-sequence passes run the flash kernel (the cross
 one at ``S_kv = T_enc``), and both decode attentions the decode kernel
 (the cross one with ``causal=False``).
+
+Training: with ``cfg.remat`` set and autograd recording, each encoder and
+decoder layer runs under ``torch.utils.checkpoint`` (non-reentrant), as
+the reference wraps its scanned blocks in ``jax.checkpoint``; per-layer
+views come from one ``unbind`` per stacked leaf and are cached only while
+no gradient is recorded.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache
@@ -51,6 +58,7 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.sharding_hooks import constrain
+from repro_torch.models.transformer import unstack
 
 BSE = ("batch", "seq", "embed")
 
@@ -117,7 +125,8 @@ class EncDecTransformer:
         self.cfg = cfg
         self.MAX_DEC_POSITIONS = cfg.max_dec_positions
         self._spec = model_spec(cfg)
-        # Per-layer parameter views of the last params tree seen.
+        # Per-layer parameter views of the last params tree seen without a
+        # gradient (never kept while autograd records).
         self._param_views: Optional[Tuple[Any, Dict[str, List[Dict]]]] = None
 
     # ----- params -----------------------------------------------------
@@ -130,15 +139,29 @@ class EncDecTransformer:
 
     def _layers(self, params, part: str) -> List[Dict]:
         """Layer ``i``'s parameters of ``part`` ("encoder" or "decoder"),
-        sliced once per params tree."""
-        if self._param_views is None or self._param_views[0] is not params:
+        sliced once per params tree, or anew whenever a gradient is
+        recorded."""
+        grad = torch.is_grad_enabled()
+        if grad or self._param_views is None or self._param_views[0] is not params:
             views = {
-                name: [map_tree(lambda t, i=i: t[i], params[name]) for i in range(n)]
+                name: unstack(params[name], n)
                 for name, n in (("encoder", self.cfg.n_encoder_layers),
                                 ("decoder", self.cfg.n_layers))
             }
-            self._param_views = (params, views)
+            self._param_views = None if grad else (params, views)
+            return views[part]
         return self._param_views[1][part]
+
+    def _remat(self) -> bool:
+        return self.cfg.remat and torch.is_grad_enabled()
+
+    def _enc_block(self, p, x, positions):
+        cfg = self.cfg
+        h = apply_norm(x, p["norm1"], cfg.norm)
+        x = x + mha(p["attn"], h, positions, causal=False, rope_theta=None,
+                    rope_kind="none", impl=cfg.impl)
+        h2 = apply_norm(x, p["norm2"], cfg.norm)
+        return constrain(x + apply_mlp(h2, p["ffn"], cfg.activation), BSE)
 
     # ----- encoder --------------------------------------------------------
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -148,12 +171,12 @@ class EncDecTransformer:
         x = frames + sinusoidal_positions(t, d, frames.device).to(frames.dtype)[None]
         x = constrain(x, BSE)
         positions = torch.arange(t, device=frames.device).expand(b, t)
+        remat = self._remat()
         for p in self._layers(params, "encoder"):
-            h = apply_norm(x, p["norm1"], cfg.norm)
-            x = x + mha(p["attn"], h, positions, causal=False, rope_theta=None,
-                        rope_kind="none", impl=cfg.impl)
-            h2 = apply_norm(x, p["norm2"], cfg.norm)
-            x = constrain(x + apply_mlp(h2, p["ffn"], cfg.activation), BSE)
+            if remat:
+                x = checkpoint(self._enc_block, p, x, positions, use_reentrant=False)
+            else:
+                x = self._enc_block(p, x, positions)
         return apply_norm(x, params["enc_final_norm"], cfg.norm)
 
     # ----- decoder, full sequence (training) ------------------------------
@@ -181,8 +204,13 @@ class EncDecTransformer:
         b, s = dec_tokens.shape
         positions = torch.arange(s, device=dec_tokens.device).expand(b, s)
         x = self._embed_dec(params, dec_tokens, positions)
+        remat = self._remat()
         for p in self._layers(params, "decoder"):
-            x = self._dec_block_full(p, x, positions, enc_out)
+            if remat:
+                x = checkpoint(self._dec_block_full, p, x, positions, enc_out,
+                               use_reentrant=False)
+            else:
+                x = self._dec_block_full(p, x, positions, enc_out)
         x = apply_norm(x, params["dec_final_norm"], self.cfg.norm)
         return unembed(x, params["embed"]), torch.zeros((), dtype=torch.float32,
                                                         device=x.device)

@@ -8,9 +8,19 @@ scans over that axis with ``lax.scan``, this module loops over it; the
 decode and prefill loops write each layer's slice of the stacked cache
 in place.
 
-Modes: ``forward`` (full-sequence logits), ``prefill`` (forward + cache
+Modes: ``forward`` (full-sequence logits), ``loss`` (the reference's
+next-token loss over ``forward``), ``prefill`` (forward + cache
 population, last-token logits), ``decode_step`` (one token against the
 cache, in place).
+
+Training: when ``cfg.remat`` is set and autograd is recording, each layer
+of ``forward`` runs under ``torch.utils.checkpoint`` (non-reentrant): its
+activations are recomputed in the backward pass, the counterpart of the
+reference's ``jax.checkpoint`` over each superblock. Per-layer parameter
+views are cut from the stacked tensors by one ``unbind`` per leaf, so the
+backward gathers a stacked leaf's gradient with one stack, not one
+full-size gradient per layer; they are cached (for decode) only while no
+gradient is recorded.
 
 Block kinds: ``attn`` (global attention), ``swa`` (sliding-window
 attention over a ring cache), ``rglru`` (Griffin recurrent block) and
@@ -31,6 +41,8 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache
@@ -118,6 +130,18 @@ def block_spec(cfg: ModelConfig, kind: str) -> Dict:
     else:
         spec["ffn"] = mlp_spec(d, cfg.d_ff, cfg.activation)
     return spec
+
+
+def unstack(tree: Any, n: int) -> List[Any]:
+    """The ``n`` per-layer views of a stacked tree (each leaf's leading
+    axis), from one ``unbind`` per leaf."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack(v, n) for v in tree]
+        return [[p[i] for p in parts] for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack_spec(spec: Any, n: int) -> Any:
@@ -307,8 +331,10 @@ class Transformer:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self._spec = model_spec(cfg)
-        # Per-layer parameter views of the last params tree seen: the
-        # decode loop slices the stacked tensors once, not every step.
+        # Per-layer parameter views of the last params tree seen without
+        # a gradient: the decode loop slices the stacked tensors once, not
+        # every step. Never kept while autograd records (views of an
+        # earlier graph, or of parameters an optimizer replaced).
         self._param_views: Optional[Tuple[Any, List]] = None
 
     # ----- params -----------------------------------------------------
@@ -322,18 +348,21 @@ class Transformer:
     def _layers(self, params) -> List[Tuple[str, Dict, Tuple]]:
         """[(kind, layer params, where)] in depth order: superblock i at
         pattern position j (``where = ("super", j, i)``), then tail layer t
-        (``("tail", t, None)``)."""
-        if self._param_views is not None and self._param_views[0] is params:
+        (``("tail", t, None)``). Cut anew whenever a gradient is
+        recorded."""
+        grad = torch.is_grad_enabled()
+        if not grad and self._param_views is not None and self._param_views[0] is params:
             return self._param_views[1]
         cfg = self.cfg
         out = []
+        per_kind = [unstack(params["super"][j], cfg.n_super)
+                    for j in range(len(cfg.block_pattern))] if cfg.n_super > 0 else []
         for i in range(cfg.n_super):
             for j, kind in enumerate(cfg.block_pattern):
-                layer = map_tree(lambda t: t[i], params["super"][j])
-                out.append((kind, layer, ("super", j, i)))
+                out.append((kind, per_kind[j][i], ("super", j, i)))
         for t, (p_layer, kind) in enumerate(zip(params["tail"], cfg.tail_kinds)):
             out.append((kind, p_layer, ("tail", t, None)))
-        self._param_views = (params, out)
+        self._param_views = None if grad else (params, out)
         return out
 
     @staticmethod
@@ -367,11 +396,26 @@ class Transformer:
         positions = _positions(self.cfg, tokens, positions)
         x = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for kind, p, _ in self._layers(params):
-            x, a, _ = _apply_block_full(self.cfg, kind, p, x, positions, collect=False)
+            if remat:
+                x, a, _ = checkpoint(_apply_block_full, self.cfg, kind, p, x, positions,
+                                     False, use_reentrant=False)
+            else:
+                x, a, _ = _apply_block_full(self.cfg, kind, p, x, positions, collect=False)
             if a is not None:
                 aux = aux + a
         return self._logits(params, x), aux
+
+    def loss(self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
+             aux_weight: float = 0.01) -> torch.Tensor:
+        """Mean next-token negative log-likelihood of ``forward``'s logits,
+        plus ``aux_weight`` times the MoE load-balancing loss: the
+        reference's formula."""
+        logits, aux = self.forward(params, tokens, positions)
+        logp = F.log_softmax(logits[:, :-1], dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+        return nll.mean() + aux_weight * aux
 
     # ----- decode ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda"):

@@ -59,7 +59,8 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     assert float(got[2].abs().max()) == 0.0
     after = ops.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
-        "decode_attention": 1, "flash_attention": 1, "wkv6": 0, "rglru_scan": 0}
+        "decode_attention": 1, "flash_attention": 1, "flash_attention_bwd": 0, "wkv6": 0,
+        "rglru_scan": 0}
 
 
 # (B, S, KV, G, D, window, ring): D in {8, 16, 64, 256}, S in {1, 63, 509,
@@ -825,3 +826,199 @@ def test_checkpoint_restores_onto_card(cuda, tmp_path):
     for (na, a), (nb, b) in zip(leaf_paths(params), leaf_paths(out)):
         assert na == nb and b.device == a.device and b.dtype == torch.bfloat16
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel, gradients through the kernels, and
+# the kernels without a backward refusing a gradient
+# ---------------------------------------------------------------------------
+
+# (B, S, S_kv, H, KV, D, causal, window, positions)
+BWD_CASES = [
+    (2, 100, 100, 8, 2, 64, True, None, False),
+    (1, 130, 130, 4, 4, 32, True, None, False),
+    (2, 509, 509, 16, 4, 64, True, 40, False),
+    (2, 70, 70, 4, 1, 16, True, 9, False),
+    (2, 33, 150, 4, 4, 64, False, None, False),
+    (1, 100, 1437, 20, 20, 64, False, None, False),
+    (2, 300, 300, 8, 2, 128, True, None, True),
+    (2, 130, 130, 4, 1, 16, False, 9, True),
+    (1, 64, 64, 4, 4, 256, True, None, False),
+]
+
+
+def _bwd_inputs(cuda, dtype, case):
+    b, s, skv, h, kv, d, causal, window, with_pos = case
+    gen = torch.Generator(device=cuda).manual_seed(s + skv + d + h)
+    q, do = (torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, skv, kv, d), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    if with_pos:
+        pos = _temporal_positions(cuda, b, s, torch.Generator().manual_seed(s))
+        kw.update(q_pos=pos, kv_pos=pos)
+    return q, k, v, do, kw
+
+
+# The float32 backward takes D <= 128 (shared memory): its D = 256 case
+# runs in bf16 only.
+BWD_DTYPE_CASES = [(dtype, case) for dtype in (torch.float32, torch.bfloat16)
+                   for case in BWD_CASES if dtype == torch.bfloat16 or case[5] <= 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,case", BWD_DTYPE_CASES, ids=[
+    "{}-B{}-S{}-Skv{}-H{}-KV{}-D{}-c{}-w{}-pos{}".format(str(d).split(".")[-1], *c)
+    for d, c in BWD_DTYPE_CASES])
+def test_flash_backward_kernel_on_card(cuda, dtype, case):
+    """The forward's log-sum-exp against the plain one; the backward kernel
+    (dQ, dK, dV) against ``flash_attention_bwd_plain`` on the kernel's own O
+    and LSE, for every mask mode and GQA group; two calls torch.equal."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels.ref import flash_attention_fwd_lse_plain
+
+    q, k, v, do, kw = _bwd_inputs(cuda, dtype, case)
+    out, lse = fk.flash_attention_lse(q, k, v, **kw)
+    out_p, lse_p = flash_attention_fwd_lse_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), out_p.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_p, atol=TOL[dtype], rtol=TOL[dtype])
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 2
+    want = fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype], rtol=TOL[dtype],
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_through_kernels_on_card(cuda, dtype):
+    """ops.flash_attention under autograd: FlashAttentionFn's gradients
+    against autograd through the plain version, one forward and one
+    backward launch counted."""
+    q, k, v, do, kw = _bwd_inputs(cuda, dtype, (2, 200, 200, 8, 2, 64, True, 50, False))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = ops.launch_counts()
+    out = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+    plain = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*plain, **kw), plain, do.float())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_serving_flash_call_writes_no_lse_and_keeps_no_graph(cuda, monkeypatch):
+    """Without a gradient (no_grad, or inputs that need none) the flash call
+    is the serving path's: no log-sum-exp written, no autograd graph."""
+    from repro_torch.kernels import flash_attention as fk
+
+    seen = []
+    real = fk._launch
+
+    def spy(*args, **kw):
+        seen.append(kw.get("with_lse", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fk, "_launch", spy)
+    q, k, v, _, kw = _bwd_inputs(cuda, torch.bfloat16, (2, 64, 64, 4, 2, 64, True, None, False))
+    out = ops.flash_attention(q, k, v, **kw)
+    assert out.grad_fn is None
+    with torch.no_grad():
+        out = ops.flash_attention(q.requires_grad_(), k, v, **kw)
+    assert out.grad_fn is None and seen == [False, False]
+    out = ops.flash_attention(q, k, v, **kw)
+    assert out.grad_fn is not None and seen[-1] is True
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_refuse_a_gradient_on_card(cuda):
+    """decode_attention, wkv6 and rglru_scan raise on the card when a
+    gradient is required of them, naming the kernel; under no_grad they
+    run."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qd = torch.randn((2, 1, 4, 64), generator=gen, device=cuda, requires_grad=True)
+    ck = torch.randn((2, 64, 2, 64), generator=gen, device=cuda)
+    cur = torch.tensor([63, 10], dtype=torch.int32, device=cuda)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda).expand(2, 64).contiguous()
+    valid = pos <= cur[:, None]
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        ops.decode_attention(qd, ck, ck, cur, pos, valid)
+    with torch.no_grad():
+        ops.decode_attention(qd, ck, ck, cur, pos, valid)
+    r = torch.randn((1, 8, 2, 64), generator=gen, device=cuda, requires_grad=True)
+    w = torch.rand((1, 8, 2, 64), generator=gen, device=cuda) * 0.5 + 0.4
+    u = torch.randn((2, 64), generator=gen, device=cuda)
+    with pytest.raises(RuntimeError, match="wkv6"):
+        ops.wkv6(r, r.detach(), r.detach(), w, u)
+    a = torch.rand((1, 8, 32), generator=gen, device=cuda)
+    bb = torch.randn((1, 8, 32), generator=gen, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="rglru_scan"):
+        ops.rglru_scan(a, bb)
+    with torch.no_grad():
+        ops.wkv6(r, r, r, w, u)
+        ops.rglru_scan(a, bb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen2-vl-72b", "whisper-large-v3"])
+def test_train_step_through_kernels_matches_dense_on_card(cuda, arch, monkeypatch):
+    """A tiny float32 model with remat on: the loss and every parameter
+    leaf's gradient through the kernels (flash forward with LSE, the
+    backward kernel) against impl="dense" (autograd through plain PyTorch
+    attention) at 1e-4 of each leaf's max abs; no plain version runs; two
+    flash forwards (remat) and one backward per attention call; then a
+    train step through the kernels gives a finite loss."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models import model_for
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_loop as ttl
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(fk, "flash_attention_plain", refuse)
+    monkeypatch.setattr(fb, "flash_attention_bwd_plain", refuse)
+    cfg = tiny(arch, remat=True)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    mk, md = model_for(cfg), model_for(dataclasses.replace(cfg, impl="dense"))
+    params = ttl.trainable(mk.init(gen, device=cuda))
+    b, s = 2, 40
+    if cfg.encdec:
+        batch = {"frames": 0.1 * torch.randn((b, 30, cfg.d_model), generator=gen, device=cuda),
+                 "dec_tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                             device=cuda)}
+        loss = lambda m: m.loss(params, batch["frames"], batch["dec_tokens"])
+        n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=cuda)}
+        if cfg.rope_kind == "mrope":
+            t = _temporal_positions(cuda, b, s, torch.Generator().manual_seed(2))
+            batch["positions"] = torch.stack([t, t, t])
+        loss = lambda m: m.loss(params, batch["tokens"], batch.get("positions"))
+        n_attn = cfg.n_layers
+    leaves = tree_leaves(params)
+    before = ops.launch_counts()
+    lk = loss(mk)
+    gk = torch.autograd.grad(lk, leaves)
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 2 * n_attn
+    assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == n_attn
+    assert all(after[n] == before[n] for n in ("decode_attention", "wkv6", "rglru_scan"))
+    ld = loss(md)
+    gd = torch.autograd.grad(ld, leaves)
+    torch.testing.assert_close(lk, ld, atol=1e-5, rtol=1e-5)
+    for a, w in zip(gk, gd):
+        scale = float(w.abs().max())
+        assert float((a - w).abs().max()) <= 1e-4 * max(scale, 1e-30)
+    step = ttl.make_train_step(mk, ttl.TrainConfig(adamw=topt.AdamWConfig(warmup_steps=1)))
+    state, met = step(ttl.TrainState(params, topt.init(params)), batch)
+    assert bool(torch.isfinite(met["loss"])) and int(state.opt.step) == 1

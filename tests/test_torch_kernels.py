@@ -196,7 +196,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     t = [torch.from_numpy(a) for a in _decode_inputs(DECODE_SHAPES[0], 1)]
     with pytest.raises(ValueError, match="CUDA"):
         dk.decode_attention(*t)
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.flash_attention_bwd(q, k, v, q, q, torch.zeros(q.shape[0], q.shape[2], q.shape[1]))
     assert (dk.launches, fk.launches) == before
     counts = tops.launch_counts()
-    assert set(counts) == {"decode_attention", "flash_attention", "wkv6", "rglru_scan"}
+    assert set(counts) == {"decode_attention", "flash_attention", "flash_attention_bwd", "wkv6",
+                           "rglru_scan"}
     assert (counts["decode_attention"], counts["flash_attention"]) == before
