@@ -12,8 +12,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              prints ptxas' register and spill lines and, from
              `cuobjdump -sass`, each library's count of tensor-core
              (HGMMA, HMMA) and async-copy (UTMALDG, LDGSTS) instructions;
-             fails unless flash_attention has HGMMA, decode_attention,
-             wkv6 (its chunked design) and flash_attention_bwd HMMA.
+             fails unless flash_attention and flash_attention_bwd have
+             HGMMA, decode_attention and wkv6 (its chunked design) HMMA,
+             and if a wgmma kernel of flash_attention_bwd spills.
 3. kernels — holds each kernel against its plain PyTorch version at the
              main path's shapes, in bf16 (2e-2) and float32 (2e-5): the
              two attention kernels at granite-3-2b's and recurrentgemma-
@@ -141,13 +142,15 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              (2e-5), whisper-large-v3's encoder (S = 1500, non-causal) and
              decoder cross (S = 448, S_kv = 1500), qwen2-vl-72b's on the
              mrope phase's position ids, each timed (CUDA-graph replays)
+             in turns with its previous design (the mma.sync kernels),
              beside its plain version, the backward of one SDPA call
              (eager) and its bound. (b) granite-3-2b at full width and
              depth (40 layers, bf16, remat on), batch 8 x 1024 of seeded
              Zipf tokens, 10 steps of make_train_step: finite losses, the
              last three's mean below the first three's, and per step 80
              flash forwards, 40 backward launches, none of the other
-             kernels; logs step ms, tokens/s, peak memory, every loss.
+             kernels; logs step ms, tokens/s, peak memory, every loss
+             beside the first backward design's.
              (c) 2 layers at full width: every gradient leaf through the
              kernels against impl="dense" (2e-2 of the leaf's max abs);
              the resume drill through CheckpointManager on a TrainState
@@ -222,6 +225,10 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 L2_BYTES = 50 * 2**20
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 TRAIN_LR = 5e-4
+# The full-width train phase's ten losses with the backward's first design
+# (the mma.sync kernels; the same seeds and steps, on an H100 80GB HBM3),
+# logged beside this run's.
+FIRST_DESIGN_LOSSES = (11.188, 11.455, 15.117, 9.995, 16.705, 10.553, 9.336, 8.647, 8.448, 8.291)
 
 
 def log(msg: str) -> None:
@@ -331,6 +338,27 @@ def bound(nbytes: int, flops: int, dtype: str = "bfloat16"):
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
+
+
+def wgmma_spills(ptxas_log: str) -> dict:
+    """Spill bytes (stores + loads) of every kernel whose name has
+    "wgmma", from nvcc's -Xptxas -v output."""
+    import re
+
+    out, name = {}, None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1) if "wgmma" in m.group(1) else None
+            short = re.search(r"\d+([a-z_]*wgmma_kernel)ILi(\d+)ELb(\d)", name or "")
+            if short:  # e.g. dkdv_wgmma_kernel<64, kPos=1>
+                name = f"{short.group(1)}<{short.group(2)}, kPos={short.group(3)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name is not None:
+            out[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    return out
 
 
 def sass_counts(path) -> dict:
@@ -2532,12 +2560,12 @@ def bwd_case(torch, gen, dtype, b, s, skv, h, kv, d, causal, pos=None):
 
 
 def time_bwd(torch, label, inp, kw, n_pairs, report_err, sdpa_kw):
-    """Device ms of the backward kernel (CUDA-graph replays over copies past
-    L2), its eager ms, the plain version's eager ms, and the backward of one
-    SDPA call on the same inputs (torch.autograd.grad on a retained graph,
-    eager, event-timed), with the bound: each input read and each output
-    written once, 10 D flops per (query, key) pair and head (five
-    products)."""
+    """Device ms of the backward kernel and of its previous design, in turns
+    (CUDA-graph replays over copies past L2), the kernel's eager ms, the
+    plain version's eager ms, and the backward of one SDPA call on the
+    same inputs (torch.autograd.grad on a retained graph, eager,
+    event-timed), with the bound: each input read and each output written
+    once, 10 D flops per (query, key) pair and head (five products)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bwd as fb
@@ -2547,7 +2575,7 @@ def time_bwd(torch, label, inp, kw, n_pairs, report_err, sdpa_kw):
     inputs = copies(inp, (2 * q.numel() + 2 * k.numel() + out.numel()) * esz)
     run_k = lambda *x: fb.flash_attention_bwd(*x, **kw)
     run_p = lambda *x: fb.flash_attention_bwd_plain(*x, **kw)
-    ms = device_ms(run_k, inputs)
+    ms, previous_ms = in_turns(run_k, lambda *x: fb.previous_design(*x, **kw), inputs)
     eager_ms = time_ms(run_k, inputs)
     plain_ms = time_ms(run_p, inputs, iters=3, warmup=1)
     lib = []
@@ -2562,11 +2590,13 @@ def time_bwd(torch, label, inp, kw, n_pairs, report_err, sdpa_kw):
     nbytes = (4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4
     flops = 10 * h * d * n_pairs
     bound_ms, bound_by = bound(nbytes, flops)
-    log(f"{label}: kernel {ms:.4f} ms (eager calls {eager_ms:.4f}), plain {plain_ms:.4f} ms, "
-        f"SDPA backward {library_ms:.4f} ms (eager), bound {bound_ms:.4f} ms by {bound_by} "
-        f"({nbytes} bytes, {flops} flops)")
-    return dict(shape=label, max_abs_err=report_err, ms=ms, eager_ms=eager_ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"{label}: kernel {ms:.4f} ms (eager calls {eager_ms:.4f}), previous design "
+        f"{previous_ms:.4f} ms (in turns), plain {plain_ms:.4f} ms, SDPA backward "
+        f"{library_ms:.4f} ms (eager), bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
+        f"{flops} flops; computed as 14 D a pair: {flops * 1.4 / ms / 1e9:.1f} TFLOP/s)")
+    return dict(shape=label, max_abs_err=report_err, ms=ms, previous_ms=previous_ms,
+                eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def backward_kernel_checks(torch, report):
@@ -2615,7 +2645,8 @@ def backward_kernel_checks(torch, report):
         gradient_of="src/repro/models/attention.py:117",
         max_abs_err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=main["library_ms"],
-        previous_ms=None, f32_max_abs_err=err32, shape=main["shape"], shapes=records[1:])
+        previous_ms=main["previous_ms"], f32_max_abs_err=err32, shape=main["shape"],
+        shapes=records[1:])
 
 
 def train_batch(torch, data, i):
@@ -2685,6 +2716,9 @@ def train_full_width(torch, report):
         f"per step {json.dumps(per_step)}; 6 N tokens = {flops6} flops a step, "
         f"{flops6 / med / 1e9:.1f} TFLOP/s achieved, bound "
         f"{flops6 / PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms")
+    log("train losses beside the first backward design's: " + ", ".join(
+        f"step {i} {x:.3f} ({y:.3f})"
+        for i, (x, y) in enumerate(zip(losses, FIRST_DESIGN_LOSSES))))
     report["flash_attention_bwd"]["launches"] = launches["flash_attention_bwd"]
     report["train"] = dict(n_params=n_params, state_bytes=state_bytes, losses=losses,
                            step_ms=times, median_step_ms=med, tokens_per_s=tokens / med * 1e3,
@@ -2861,9 +2895,15 @@ def main() -> int:
             counts = sass_counts(path)
             log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
             need = {"flash_attention": "HGMMA", "decode_attention": "HMMA",
-                    "wkv6": "HMMA", "flash_attention_bwd": "HMMA"}.get(name)
+                    "wkv6": "HMMA", "flash_attention_bwd": "HGMMA"}.get(name)
             if need and counts[need] < 1:
                 raise AssertionError(f"{name}: no {need} in its SASS")
+            if name == "flash_attention_bwd":
+                spills = wgmma_spills(text)
+                log(f"  wgmma kernels of {name}: {json.dumps(spills)}")
+                if not spills or any(spills.values()):
+                    raise AssertionError(f"{name}: a wgmma kernel spills (or none built): "
+                                         f"{spills}")
     with Phase("kernels"):
         phase_kernels(torch, report)
     with Phase("model"):

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on its
 own with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``build/<name>-<hash>.so`` beside this module. The hash covers the
-source and the flags, so an edited source rebuilds and an unchanged one
-is loaded as it is. ``build()`` starts one ``nvcc`` per source, all
+source, every shared header (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is loaded as it is. ``build()`` starts one ``nvcc`` per source, all
 together, and waits for them. Nothing here runs at import time: the CPU
 tests import every module on a machine with no ``nvcc``.
 """
@@ -41,8 +41,10 @@ def nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -10,47 +10,86 @@
 //
 // Same function as the plain `flash_attention_bwd_plain` in kernels/ref.py,
 // the FlashAttention-2 recurrences from the saved LSE, with no atomics (a
-// call is deterministic):
-//   1. `delta_kernel`: Delta = rowsum(dO * O) in float32, (B, H, S).
-//   2. `dkdv_kernel`, one block per (kv tile of 64 keys, kv head, b): K and
-//      V of the tile stay in shared memory; over the H / KV query heads of
-//      the group and the query tiles the mask reaches, it recomputes
-//      S = Q K^T, P = exp(S scale - LSE), dP = dO V^T, dS = P (dP - Delta),
-//      and accumulates dV += P^T dO and dK += dS^T Q in float32 registers.
-//   3. `dq_kernel`, one block per (query tile of 64, head, b): Q, dO, LSE
-//      and Delta stay in shared memory; over the kv tiles the mask reaches
-//      it recomputes P and dS and accumulates dQ += dS K.
-// Masks are the forward's (arange causal, window, non-causal with
-// S_kv != S, position-valued q_pos / kv_pos), through one predicate,
-// `attends`, and tiles wholly masked are skipped by `tile_live`, the
-// forward's tile skip.
-//
-// Both routes run the same code; only the tile product `warp_gemm` and the
-// operand type differ (a rule by dtype, not a fallback):
-//   - bfloat16: mma.sync.m16n8k16 on the tensor cores, float32 accumulate.
-//     P is rounded to bf16 before dV += P^T dO (as the forward rounds P
-//     before P V) and dS before dQ and dK: the tensor cores' operands.
-//   - float32: the same tiles as register-blocked FMA products in the mma's
-//     fragment layout, nothing rounded (the reference's 2e-5 tolerance
-//     rules out TF32).
+// call is deterministic): a pre-pass `delta_kernel` computes Delta =
+// rowsum(dO * O) in float32, (B, H, S); a dK/dV kernel owns a tile of keys
+// and walks the query tiles that reach it, recomputing S = Q K^T,
+// P = exp(S scale - LSE), dP = dO V^T, dS = P (dP - Delta) and summing
+// dV += P^T dO and dK += dS^T Q over the group's H / KV query heads in a
+// fixed order; a dQ kernel owns a tile of queries and walks the kv tiles,
+// recomputing P and dS and summing dQ += dS K. S and dP are computed in
+// both kernels: 14 D flops per (query, key) pair and head for the 10 D of
+// the five products, 1.4x the bound's operations, the price of summing
+// dQ without atomics. P is rounded to bf16 before dV (as the forward
+// rounds P before P V) and dS before dQ and dK, where they are
+// tensor-core operands. Masks are the forward's (arange causal, window,
+// non-causal with S_kv != S, position-valued q_pos / kv_pos) through one
+// element predicate, `attends`, and the (64 queries, 64 keys) tiles
+// wholly masked are skipped by `tile_live`, the forward's tile skip.
+// `ref.flash_attention_bwd_tiled_plain` walks the wgmma route's tiles in
+// its order on the CPU.
 //
 // What bounds it on the H100: operations. At granite-3-2b's training shape
 // (B = 8, S = 1024, H = 32, KV = 8, D = 64, causal) the five products over
-// the 134.3 M causal (query, key) pairs are 85.9 GFLOP, 0.0869 ms at 989
-// TFLOP/s bf16, against about 170 MB read and written once (Q, K, V, O,
-// dO, LSE in; dQ, dK, dV out), 0.0507 ms at 3.35 TB/s. This first design
-// is simple and right, not fast: operands are staged by plain 16-byte
-// loads, fragments read from shared memory without ldmatrix, and S and dP
-// are computed twice (once per kernel). Its time stands beside the bound
-// in PERF.md; wgmma and TMA are later work.
+// the 134.3 M causal (query, key) pairs and heads are 85.9 GFLOP, 0.0869 ms
+// at 989 TFLOP/s bf16 (120.3 GFLOP as computed, with S and dP twice),
+// against about 170 MB read and written once (Q, K, V, O, dO, LSE in;
+// dQ, dK, dV out), 0.0507 ms at 3.35 TB/s.
+//
+// Routes, a rule by dtype and head dim (`route`), never a fallback: a CUDA
+// tensor launches its route's kernels or the call raises.
+//   - bf16, D <= 128 (granite, whisper at 64; qwen2-vl, mixtral at 128):
+//     `dkdv_wgmma_kernel` and `dq_wgmma_kernel`, every product a
+//     wgmma.mma_async m64n64k16 with float32 accumulators, on the tiles of
+//     csrc/wgmma_tiles.cuh (the forward's), D zero-padded to 64 or 128.
+//       dK/dV: one warpgroup (128 threads) per (64 keys, kv head, b), one
+//       wgmma M. Its K and V sit in shared memory for the whole walk; Q,
+//       dO, LSE and Delta of the next 64-query tile (and its positions)
+//       come through a 2-stage cp.async ring while the current one is
+//       multiplied, one barrier a step. Per step S^T = K Q^T and
+//       dP^T = V dO^T are wgmma_ss (A = K or V, B = Q or dO, both K-major,
+//       as the forward's S = Q K^T); P^T and dS^T, rows keys and columns
+//       queries (LSE, Delta and query positions per column, read from the
+//       ring's shared memory), are packed to bf16 in the accumulator
+//       layout, which is wgmma's A register fragment; then dV += P^T dO and
+//       dK += dS^T Q are wgmma_rs with the same dO and Q tiles read
+//       MN-major (as the forward's O += P V). Blocks of the first keys,
+//       which the most causal query tiles reach, start first.
+//       dQ: one warpgroup per (64 queries, head, b), K/V tiles through the
+//       same kind of ring; S = Q K^T and dP = dO V^T are wgmma_ss,
+//       dQ += dS K is wgmma_rs with K read MN-major. Blocks late in S start
+//       first.
+//     One warpgroup a block, two blocks an SM (the registers allow no
+//     more): the two run unsynchronised, so one's softmax overlaps the
+//     other's products, which two warpgroups sharing a ring in one block
+//     (the forward's geometry) do not, as they meet at every step's
+//     barrier; that geometry measured slower on the H100 (PERF.md §6).
+//     The softmax leaves out the element mask on tiles every pair of which
+//     attends (`tile_full`: all but the diagonal and edge tiles of a
+//     causal walk), saving its integer tests per element, and uses
+//     ex2.approx.ftz. The register
+//     budget at D = 128: dK + dV (128) + S^T + dP^T (64) + the packed P^T
+//     and dS^T (32) a thread, with P^T and dS^T formed element by element
+//     so that S^T and dP^T die as they go; ptxas -v shows each kernel's
+//     registers and spills (chip_smoke.py fails on a spill).
+//   - bf16, D > 128 (gemma3, recurrentgemma at 256): the first design,
+//     `dkdv_kernel<bf16>` / `dq_kernel<bf16>`: one block per 64-key or
+//     64-query tile, mma.sync.m16n8k16 on fragments read from shared
+//     memory, plain 16-byte loads. dK + dV alone are 256 registers a
+//     thread at D = 256 in the wgmma layout.
+//   - float32: the same first design with register-blocked FMA products
+//     in mma.sync's fragment layout, nothing rounded (the reference's
+//     2e-5 tolerance rules out TF32).
+// `flash_attention_bwd_previous` runs the first design at every bf16 D
+// (and float32 as above), for side-by-side timing only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_tiles.cuh"  // bf16, cp.async, load_tile, smem_desc, wgmma_*, pack_bf16
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
 constexpr int kTile = 64;  // queries per query tile, keys per kv tile
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -278,8 +317,9 @@ __global__ void delta_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// 2. dK and dV: one block per (kv tile, kv head, b). Warp (wr, wc) owns kv
-//    rows 16 wr .. 16 wr + 15 and D columns 64 wc .. 64 wc + 63 of both.
+// 2. The first design's dK and dV (float32; bf16 at D > 128): one block per
+//    (kv tile, kv head, b). Warp (wr, wc) owns kv rows 16 wr .. 16 wr + 15
+//    and D columns 64 wc .. 64 wc + 63 of both.
 // ---------------------------------------------------------------------------
 
 template <typename T, int DP>
@@ -363,8 +403,8 @@ __global__ void __launch_bounds__(Geo<T, DP>::THREADS) dkdv_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// 3. dQ: one block per (query tile, head, b). Warp (wr, wc) owns query rows
-//    16 wr .. 16 wr + 15 and D columns 64 wc .. 64 wc + 63.
+// 3. The first design's dQ: one block per (query tile, head, b). Warp
+//    (wr, wc) owns query rows 16 wr .. 16 wr + 15 and D columns 64 wc .. 64 wc + 63.
 // ---------------------------------------------------------------------------
 
 template <typename T, int DP>
@@ -439,12 +479,471 @@ __global__ void __launch_bounds__(Geo<T, DP>::THREADS) dq_kernel(Args a) {
     }
 }
 
-template <typename T, int DP>
-int launch(const Args& a, cudaStream_t stream) {
-  using G = Geo<T, DP>;
+// ---------------------------------------------------------------------------
+// 4. bf16, D <= 128: dK/dV and dQ on wgmma (see the header). The fragment
+//    rule of csrc/flash_attention.cu: thread t of a warpgroup (warp w, lane
+//    l) holds d[4n + 2i + j] of a 64 x 64 accumulator at row 16w + l/4 + 8i,
+//    column 8n + 2(l%4) + j, and the same (row, pair of columns) layout is
+//    wgmma's A register fragment of a 64 x 16 k-step: pack_bf16 of columns
+//    16kk .. 16kk + 15 (n = 2kk, 2kk + 1) gives its four registers.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;  // one warpgroup a block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStatBytes = 64 * 4;  // one query tile's LSE, Delta or positions
+
+// 4-byte async copy global -> shared; zero-fills when !pred.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 2^x with denormal results flushed to 0 (ex2.approx.ftz: one MUFU op; a P
+// below 2^-126 adds nothing at bf16's precision).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keep fragment registers that an in-flight wgmma reads live and unchanged
+// until after its wait.
+__device__ __forceinline__ void keep_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// S (64 x 64) = A B^T over DP / 16 k-steps, A and B 64 x DP swizzled tiles
+// (K-major both); the first k-step overwrites S.
+template <int DP>
+__device__ __forceinline__ void tile_qk(float (&s)[32], uint32_t a_tile, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kBlockBytes + (kk & 3) * 32;
+    wgmma_ss(s, smem_desc(a_tile + off, 16, 1024), smem_desc(b_tile + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 x DP) += A (64 x 64, four k-steps of register fragments) B, B a
+// 64 x DP swizzled tile read MN-major (its rows are the reduction).
+template <int NB>
+__device__ __forceinline__ void tile_pv(float (&acc)[NB][32], const uint32_t (&a)[4][4],
+                                        uint32_t b_tile) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc[c], a[kk], smem_desc(b_tile + c * kBlockBytes + kk * 2048, 1024, 1024));
+}
+
+template <int NB>
+__device__ __forceinline__ void zero_acc(float (&acc)[NB][32]) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+}
+
+template <int NB>
+__device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+}
+
+// S = A B^T and dP = C E^T of one step, both 64 x 64, in registers.
+template <int DP>
+__device__ __forceinline__ void step_products(float (&s)[32], float (&dp)[32], uint32_t a,
+                                              uint32_t b, uint32_t c, uint32_t e) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  fence_regs(s);
+  fence_regs(dp);
+  wgmma_fence();
+  tile_qk<DP>(s, a, b);
+  tile_qk<DP>(dp, c, e);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(s);
+  fence_regs(dp);
+}
+
+// Whether every (query, key) pair of a 64 x 64 tile attends, so that the
+// element mask can be left out there. Positions are non-decreasing only
+// under a causal mask (the forward's precondition): without one, a tile
+// with positions is never called full.
+__device__ __forceinline__ bool tile_full(int q_lo, int k_lo, const int32_t* qp,
+                                          const int32_t* kp, const Args& a) {
+  if (q_lo + 63 >= a.S || k_lo + 63 >= a.Skv) return false;
+  if (kp != nullptr)
+    return a.causal && kp[k_lo + 63] <= qp[q_lo] &&
+           (a.window <= 0 || kp[k_lo] > qp[q_lo + 63] - a.window);
+  return (!a.causal || k_lo + 63 <= q_lo) && (a.window <= 0 || k_lo > q_lo + 63 - a.window);
+}
+
+// The softmax step of one 64 x 64 tile on the accumulator fragments:
+// P = exp(S scale - LSE) in place where the element mask keeps the pair (0
+// elsewhere) and dS = P (dP - Delta), element by element, each rounded to
+// bf16 into A fragments (`pa`, `da`). kKeyRows: rows are keys and columns
+// queries (the dK/dV kernel): LSE, Delta and query positions per column
+// from the ring's shared memory (`col_*`), key positions per row
+// (`row_pos`). Otherwise rows are queries: LSE (log2 units), Delta and
+// positions per row (`row_*`), key positions per column from global
+// memory (`kp`).
+template <bool kKeyRows, bool kMask, bool kPos>
+__device__ __forceinline__ void softmax_step(float (&s)[32], const float (&dp)[32],
+                                             uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
+                                             const float* col_lse, const float* col_delta,
+                                             const int* col_pos, const int32_t* kp,
+                                             const float (&row_l2)[2], const float (&row_dl)[2],
+                                             const int (&row_pos)[2], int row0, int col_lo,
+                                             int col0, float scale_log2, const Args& a) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = 8 * n + col0;  // this thread's columns c, c + 1 (c even)
+    float2 l, dl;
+    int2 cpos;
+    if constexpr (kKeyRows) {
+      l = *reinterpret_cast<const float2*>(col_lse + c);
+      dl = *reinterpret_cast<const float2*>(col_delta + c);
+      if constexpr (kMask)
+        cpos = kPos ? *reinterpret_cast<const int2*>(col_pos + c)
+                    : make_int2(col_lo + c, col_lo + c + 1);
+    } else if constexpr (kMask) {
+      cpos = kPos ? make_int2(kp[min(col_lo + c, a.Skv - 1)], kp[min(col_lo + c + 1, a.Skv - 1)])
+                  : make_int2(col_lo + c, col_lo + c + 1);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float d[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float& x = s[4 * n + 2 * r + j];
+        bool ok = true;
+        if constexpr (kMask) {
+          const int ri = row0 + 8 * r;
+          const int ci = col_lo + c + j;
+          const int cp = j ? cpos.y : cpos.x;
+          ok = kKeyRows ? attends(ci, ri, cp, row_pos[r], a) : attends(ri, ci, row_pos[r], cp, a);
+        }
+        const float lse = kKeyRows ? (j ? l.y : l.x) * kLog2e : row_l2[r];
+        x = ok ? ex2(x * scale_log2 - lse) : 0.f;
+        d[j] = x * (dp[4 * n + 2 * r + j] - (kKeyRows ? (j ? dl.y : dl.x) : row_dl[r]));
+      }
+      pa[n >> 1][2 * (n & 1) + r] = pack_bf16(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]);
+      da[n >> 1][2 * (n & 1) + r] = pack_bf16(d[0], d[1]);
+    }
+  }
+}
+
+// `softmax_step`, with the element mask left out on a full tile.
+template <bool kKeyRows, bool kPos>
+__device__ __forceinline__ void softmax_any(bool full, float (&s)[32], const float (&dp)[32],
+                                            uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
+                                            const float* col_lse, const float* col_delta,
+                                            const int* col_pos, const int32_t* kp,
+                                            const float (&row_l2)[2], const float (&row_dl)[2],
+                                            const int (&row_pos)[2], int row0, int col_lo,
+                                            int col0, float scale_log2, const Args& a) {
+  if (full)
+    softmax_step<kKeyRows, false, kPos>(s, dp, pa, da, col_lse, col_delta, col_pos, kp, row_l2,
+                                        row_dl, row_pos, row0, col_lo, col0, scale_log2, a);
+  else
+    softmax_step<kKeyRows, true, kPos>(s, dp, pa, da, col_lse, col_delta, col_pos, kp, row_l2,
+                                       row_dl, row_pos, row0, col_lo, col0, scale_log2, a);
+}
+
+template <int DP>
+constexpr size_t dkdv_wgmma_smem() {
+  // K | V | two stages each of Q, of dO and of (LSE | Delta | positions)
+  return 6 * (size_t)(DP / 64) * kBlockBytes + 2 * 3 * kStatBytes + 1024;
+}
+
+// dK and dV: one warpgroup per (64 keys, kv head, b), the M of every
+// product; rows = keys, columns = the step's 64 queries.
+template <int DP, bool kPos>
+__global__ void __launch_bounds__(kWgThreads, 2) dkdv_wgmma_kernel(Args a, float scale_log2) {
+  constexpr int NB = DP / 64;
+  constexpr int kT = NB * kBlockBytes;  // one 64 x DP tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base;
+  const uint32_t sV = base + kT;
+  const uint32_t sQ = base + 2 * kT;   // two stages
+  const uint32_t sdO = base + 4 * kT;  // two stages
+  const uint32_t sStat = base + 6 * kT;
+  const float* stat = reinterpret_cast<const float*>(smem_raw + (sStat - raw));
+
+  // The first keys, which the most causal query tiles reach, start first.
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k_lo = blockIdx.z * 64;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int group = a.H / a.KV;
+  const size_t qrow = (size_t)a.H * a.D;
+  const size_t krow = (size_t)a.KV * a.D;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const int32_t* qp = kPos ? a.qpos + (size_t)b * a.S : nullptr;
+  const int32_t* kp = kPos ? a.kpos + (size_t)b * a.Skv : nullptr;
+
+  // The query tiles these keys need: `tile_live` keeps [t_lo, t_hi] (a
+  // contiguous run for every mask the forward takes), walked for each head
+  // of the group in turn.
+  const int n_q = (a.S + 63) / 64;
+  int t_lo = n_q, t_hi = -1;
+  for (int t = 0; t < n_q; ++t)
+    if (tile_live(64 * t, k_lo, qp, kp, a)) {
+      t_lo = min(t_lo, t);
+      t_hi = t;
+    }
+  const int n_t = max(t_hi - t_lo + 1, 0);
+  const int n_steps = group * n_t;
+
+  // Step i's Q and dO tiles, and its queries' LSE, Delta (and positions).
+  auto load_step = [&](int i, int stage) {
+    const int h = kh * group + i / n_t;
+    const int q_lo = 64 * (t_lo + i % n_t);
+    const size_t at = ((size_t)b * a.S + q_lo) * qrow + (size_t)h * a.D;
+    load_tile<DP, kWgThreads>(sQ + stage * kT, q + at, qrow, a.S - q_lo, a.D, tid);
+    load_tile<DP, kWgThreads>(sdO + stage * kT, dout + at, qrow, a.S - q_lo, a.D, tid);
+    for (int x = tid; x < (kPos ? 192 : 128); x += kWgThreads) {
+      const int which = x >> 6;
+      const int j = x & 63;
+      const bool ok = q_lo + j < a.S;
+      const size_t row = ((size_t)b * a.H + h) * a.S + q_lo + j;
+      const void* src = which == 0 ? static_cast<const void*>(a.lse + row)
+                      : which == 1 ? static_cast<const void*>(a.delta + row)
+                                   : static_cast<const void*>(qp + q_lo + j);
+      cp_async4(sStat + (stage * 3 + which) * kStatBytes + 4 * j, ok ? src : a.lse, ok);
+    }
+  };
+
+  // K and V once, with the first step's tiles.
+  const size_t kv_at = ((size_t)b * a.Skv + k_lo) * krow + (size_t)kh * a.D;
+  load_tile<DP, kWgThreads>(sK, static_cast<const bf16*>(a.k) + kv_at, krow, a.Skv - k_lo, a.D,
+                            tid);
+  load_tile<DP, kWgThreads>(sV, static_cast<const bf16*>(a.v) + kv_at, krow, a.Skv - k_lo, a.D,
+                            tid);
+  if (n_steps > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float dk[NB][32], dv[NB][32];
+  zero_acc(dk);
+  zero_acc(dv);
+  const int row0 = k_lo + warp * 16 + (lane >> 2);  // this thread's keys: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+  int kv[2];  // their mask positions
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kv[i] = kPos ? kp[min(row0 + 8 * i, a.Skv - 1)] : row0 + 8 * i;
+  const float none[2] = {0.f, 0.f};
+
+  int st = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait_all();  // step i's copies have landed (this thread's)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // ... every thread's, and step i - 1 is done with the other stage
+    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);  // in flight during this step
+    cp_async_commit();
+
+    const int q_lo = 64 * (t_lo + i % n_t);
+    if (tile_live(q_lo, k_lo, qp, kp, a)) {
+      const uint32_t qst = sQ + st * kT;
+      const uint32_t dost = sdO + st * kT;
+      const float* lse_s = stat + st * 3 * 64;  // per column: LSE | Delta | positions
+      // S^T = K Q^T and dP^T = V dO^T; then P^T and dS^T, rows keys.
+      float s[32], dp[32];
+      step_products<DP>(s, dp, sK, qst, sV, dost);
+      uint32_t pa[4][4], da[4][4];
+      softmax_any<true, kPos>(tile_full(q_lo, k_lo, qp, kp, a), s, dp, pa, da, lse_s,
+                              lse_s + 64, reinterpret_cast<const int*>(lse_s + 128), kp, none,
+                              none, kv, row0, q_lo, col0, scale_log2, a);
+      // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major.
+      fence_acc(dv);
+      fence_acc(dk);
+      wgmma_fence();
+      tile_pv<NB>(dv, pa, dost);
+      tile_pv<NB>(dk, da, qst);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(dv);
+      fence_acc(dk);
+      keep_regs(pa);
+      keep_regs(da);
+    }
+    st ^= 1;
+  }
+  cp_async_wait_all();  // nothing left in flight (a walk with no live tile)
+
+  bf16* dk_out = static_cast<bf16*>(a.dk);
+  bf16* dv_out = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = row0 + 8 * r;
+    if (kj >= a.Skv) continue;
+    const size_t at = ((size_t)b * a.Skv + kj) * krow + (size_t)kh * a.D;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int d = 64 * c + 8 * n + col0;
+        if (d < a.D) {
+          const int e = 4 * n + 2 * r;
+          *reinterpret_cast<__nv_bfloat162*>(dk_out + at + d) =
+              __floats2bfloat162_rn(dk[c][e] * a.scale, dk[c][e + 1] * a.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv_out + at + d) =
+              __floats2bfloat162_rn(dv[c][e], dv[c][e + 1]);
+        }
+      }
+  }
+}
+
+template <int DP>
+constexpr size_t dq_wgmma_smem() {
+  return 6 * (size_t)(DP / 64) * kBlockBytes + 1024;  // Q | dO | two stages of K and of V
+}
+
+// dQ: one warpgroup per (64 queries, head, b), the M of every product;
+// rows = queries, columns = the step's 64 keys.
+template <int DP, bool kPos>
+__global__ void __launch_bounds__(kWgThreads, 2) dq_wgmma_kernel(Args a, float scale_log2) {
+  constexpr int NB = DP / 64;
+  constexpr int kT = NB * kBlockBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sdO = base + kT;
+  const uint32_t sK = base + 2 * kT;  // two stages
+  const uint32_t sV = base + 4 * kT;  // two stages
+
+  // Blocks late in S, which the most causal kv tiles reach, start first.
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q_lo = (gridDim.z - 1 - blockIdx.z) * 64;
+  const int kh = h / (a.H / a.KV);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const size_t qrow = (size_t)a.H * a.D;
+  const size_t krow = (size_t)a.KV * a.D;
+  const bf16* kb = static_cast<const bf16*>(a.k) + (size_t)b * a.Skv * krow + (size_t)kh * a.D;
+  const bf16* vb = static_cast<const bf16*>(a.v) + (size_t)b * a.Skv * krow + (size_t)kh * a.D;
+  const int32_t* qp = kPos ? a.qpos + (size_t)b * a.S : nullptr;
+  const int32_t* kp = kPos ? a.kpos + (size_t)b * a.Skv : nullptr;
+
+  // The kv tiles these queries need: `tile_live` keeps [kt_lo, kt_hi].
+  const int n_kv = (a.Skv + 63) / 64;
+  int kt_lo = n_kv, kt_hi = -1;
+  for (int t = 0; t < n_kv; ++t)
+    if (tile_live(q_lo, 64 * t, qp, kp, a)) {
+      kt_lo = min(kt_lo, t);
+      kt_hi = t;
+    }
+  const int n_steps = max(kt_hi - kt_lo + 1, 0);
+  auto load_step = [&](int i, int stage) {
+    const int k_lo = (kt_lo + i) * 64;
+    load_tile<DP, kWgThreads>(sK + stage * kT, kb + (size_t)k_lo * krow, krow, a.Skv - k_lo,
+                              a.D, tid);
+    load_tile<DP, kWgThreads>(sV + stage * kT, vb + (size_t)k_lo * krow, krow, a.Skv - k_lo,
+                              a.D, tid);
+  };
+
+  const size_t q_at = ((size_t)b * a.S + q_lo) * qrow + (size_t)h * a.D;
+  load_tile<DP, kWgThreads>(sQ, static_cast<const bf16*>(a.q) + q_at, qrow, a.S - q_lo, a.D,
+                            tid);
+  load_tile<DP, kWgThreads>(sdO, static_cast<const bf16*>(a.dout) + q_at, qrow, a.S - q_lo,
+                            a.D, tid);
+  if (n_steps > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float dq[NB][32];
+  zero_acc(dq);
+  const int row0 = q_lo + warp * 16 + (lane >> 2);  // this thread's queries: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+  float l2[2], dl[2];  // their LSE (log2 units), Delta and mask positions
+  int qv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    const size_t at = ((size_t)b * a.H + h) * a.S + qi;
+    l2[r] = qi < a.S ? a.lse[at] * kLog2e : 0.f;
+    dl[r] = qi < a.S ? a.delta[at] : 0.f;
+    qv[r] = kPos ? qp[min(qi, a.S - 1)] : qi;
+  }
+
+  int st = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait_all();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);
+    cp_async_commit();
+
+    const int k_lo = (kt_lo + i) * 64;
+    if (tile_live(q_lo, k_lo, qp, kp, a)) {
+      const uint32_t kst = sK + st * kT;
+      // S = Q K^T and dP = dO V^T; then P and dS, rows queries.
+      float s[32], dp[32];
+      step_products<DP>(s, dp, sQ, kst, sdO, sV + st * kT);
+      uint32_t pa[4][4], da[4][4];  // pa: P as bf16, not multiplied here
+      softmax_any<false, kPos>(tile_full(q_lo, k_lo, qp, kp, a), s, dp, pa, da, nullptr,
+                               nullptr, nullptr, kp, l2, dl, qv, row0, k_lo, col0, scale_log2,
+                               a);
+      // dQ += dS K, K read MN-major.
+      fence_acc(dq);
+      wgmma_fence();
+      tile_pv<NB>(dq, da, kst);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(dq);
+      keep_regs(da);
+    }
+    st ^= 1;
+  }
+  cp_async_wait_all();  // nothing left in flight (a walk with no live tile)
+
+  bf16* dq_out = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= a.S) continue;
+    bf16* orow = dq_out + ((size_t)b * a.S + qi) * qrow + (size_t)h * a.D;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int d = 64 * c + 8 * n + col0;
+        const int e = 4 * n + 2 * r;
+        if (d < a.D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+              __floats2bfloat162_rn(dq[c][e] * a.scale, dq[c][e + 1] * a.scale);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename T>
+int launch_delta(const Args& a, cudaStream_t stream) {
   const size_t rows = (size_t)a.B * a.S * a.H;
   delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+// The first design: mma.sync (bf16) or FMA (float32), 64-row blocks.
+template <typename T, int DP>
+int launch_first(const Args& a, cudaStream_t stream) {
+  using G = Geo<T, DP>;
+  cudaError_t err = (cudaError_t)launch_delta<T>(a, stream);
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem_kv = dkdv_smem_bytes<T, DP>();
@@ -464,39 +963,103 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The wgmma route: bf16, D <= 128.
+template <int DP, bool kPos>
+int launch_wgmma(const Args& a, cudaStream_t stream) {
+  cudaError_t err = (cudaError_t)launch_delta<bf16>(a, stream);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = a.scale * kLog2e;
+  constexpr size_t smem_kv = dkdv_wgmma_smem<DP>();
+  err = cudaFuncSetAttribute(dkdv_wgmma_kernel<DP, kPos>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  dkdv_wgmma_kernel<DP, kPos><<<dim3(a.KV, a.B, (a.Skv + 63) / 64), kWgThreads, smem_kv,
+                                stream>>>(a, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  constexpr size_t smem_q = dq_wgmma_smem<DP>();
+  err = cudaFuncSetAttribute(dq_wgmma_kernel<DP, kPos>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (err != cudaSuccess) return (int)err;
+  dq_wgmma_kernel<DP, kPos><<<dim3(a.H, a.B, (a.S + 63) / 64), kWgThreads, smem_q, stream>>>(
+      a, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 // The forward's argument rules (S_kv != S only without a causal mask or
-// window; positions in pairs); float32 takes D <= 128 (shared memory).
-bool bad_shape(const Args& a, int dtype) {
-  return a.D % 8 != 0 || a.D > 256 || (dtype == 0 && a.D > 128) || a.KV < 1 ||
-         a.H % a.KV != 0 || a.B < 1 || a.S < 1 || a.Skv < 1 ||
+// window; positions in pairs).
+bool bad_shape(const Args& a) {
+  return a.KV < 1 || a.H % a.KV != 0 || a.B < 1 || a.S < 1 || a.Skv < 1 ||
          (a.Skv != a.S && (a.causal || a.window > 0)) ||
          ((a.qpos == nullptr) != (a.kpos == nullptr));
 }
 
+// The route of (dtype, D): 0 = float32 FMA (first design; D <= 128, its
+// shared memory), 1 = bf16 mma.sync (first design), 2 = bf16 wgmma; -1 =
+// refused.
+int route(int dtype, int D) {
+  if (D % 8 != 0 || D < 8) return -1;
+  if (dtype == 0) return D <= 128 ? 0 : -1;
+  if (dtype != 1 || D > 256) return -1;
+  return D <= 128 ? 2 : 1;
+}
+
+int run(const Args& a, int dtype, bool previous, cudaStream_t st) {
+  const int r = route(dtype, a.D);
+  if (bad_shape(a) || r < 0) return (int)cudaErrorInvalidValue;
+  if (r == 0) return a.D <= 64 ? launch_first<float, 64>(a, st) : launch_first<float, 128>(a, st);
+  if (r == 2 && !previous) {
+    const bool pos = a.qpos != nullptr;
+    if (a.D <= 64) return pos ? launch_wgmma<64, true>(a, st) : launch_wgmma<64, false>(a, st);
+    return pos ? launch_wgmma<128, true>(a, st) : launch_wgmma<128, false>(a, st);
+  }
+  if (a.D <= 64) return launch_first<bf16, 64>(a, st);
+  if (a.D <= 128) return launch_first<bf16, 128>(a, st);
+  return launch_first<bf16, 256>(a, st);
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const void* lse, void* delta, void* dq, void* dk, void* dv, const void* qpos,
+               const void* kpos, int B, int S, int Skv, int H, int KV, int D, int causal,
+               int window, float scale) {
+  return Args{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
+              dq, dk, dv, static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
+              B, S, Skv, H, KV, D, causal, window, scale};
+}
+
 }  // namespace
 
-// dtype: 0 = float32 (FMA), 1 = bfloat16 (mma.sync). q, o, dout, dq: (B, S,
-// H, D); k, v, dk, dv: (B, S_kv, KV, D), all contiguous in dtype. lse: the
-// forward's float32 (B, H, S); delta: float32 (B, H, S) scratch. qpos /
-// kpos: int32 (B, S) / (B, S_kv) mask positions, or both null for arange.
-// causal 0/1; window <= 0 means none. Three launches (Delta, dK/dV, dQ) on
-// `stream`; returns the first failing launch's cudaError (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; the route by (dtype, D) is `route`'s.
+// q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S_kv, KV, D), all
+// contiguous in dtype. lse: the forward's float32 (B, H, S); delta:
+// float32 (B, H, S) scratch. qpos / kpos: int32 (B, S) / (B, S_kv) mask
+// positions, or both null for arange. causal 0/1; window <= 0 means none.
+// Three launches (Delta, dK/dV, dQ) on `stream`; returns the first failing
+// launch's cudaError (0 on success).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv, const void* qpos,
                                    const void* kpos, int B, int S, int Skv, int H, int KV,
                                    int D, int causal, int window, float scale, void* stream) {
-  const Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
-               dq, dk, dv, static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
-               B, S, Skv, H, KV, D, causal, window, scale};
-  if (bad_shape(a, dtype)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (D <= 64) return launch<float, 64>(a, st);
-    return launch<float, 128>(a, st);
-  }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D <= 64) return launch<bf16, 64>(a, st);
-  if (D <= 128) return launch<bf16, 128>(a, st);
-  return launch<bf16, 256>(a, st);
+  return run(make_args(q, k, v, o, dout, lse, delta, dq, dk, dv, qpos, kpos, B, S, Skv, H, KV,
+                       D, causal, window, scale),
+             dtype, false, static_cast<cudaStream_t>(stream));
 }
+
+// The first design (mma.sync for bf16 at every D, FMA for float32), kept
+// for side-by-side timing only. Same arguments as flash_attention_bwd.
+extern "C" int flash_attention_bwd_previous(int dtype, const void* q, const void* k,
+                                            const void* v, const void* o, const void* dout,
+                                            const void* lse, void* delta, void* dq, void* dk,
+                                            void* dv, const void* qpos, const void* kpos, int B,
+                                            int S, int Skv, int H, int KV, int D, int causal,
+                                            int window, float scale, void* stream) {
+  return run(make_args(q, k, v, o, dout, lse, delta, dq, dk, dv, qpos, kpos, B, S, Skv, H, KV,
+                       D, causal, window, scale),
+             dtype, true, static_cast<cudaStream_t>(stream));
+}
+
+// The route flash_attention_bwd takes for (dtype, D): 0 = float32 FMA,
+// 1 = bf16 mma.sync (first design), 2 = bf16 wgmma, -1 = refused.
+extern "C" int flash_attention_bwd_route(int dtype, int D) { return route(dtype, D); }

@@ -8,6 +8,12 @@ CPU tensors take and the kernel is held against. ``launches`` counts
 kernel calls (one per call, though a call is three CUDA launches: Delta,
 dK/dV, dQ). ``flash_attention.FlashAttentionFn`` calls it; nothing else on
 a model's path does.
+
+Routes, a rule by dtype and head dim (``route``), never a fallback:
+bfloat16 with D <= 128 runs the wgmma kernels; bfloat16 with D > 128 the
+first design's ``mma.sync`` kernels; float32 (D <= 128) the first
+design's FMA kernels. ``previous_design`` runs the first design at every
+bfloat16 D, for side-by-side timing only.
 """
 from __future__ import annotations
 
@@ -23,6 +29,11 @@ from repro_torch.kernels.ref import check_flash_masks, flash_attention_bwd_plain
 
 NAME = "flash_attention_bwd"
 SYMBOL = "flash_attention_bwd"
+# The first design (mma.sync for bf16), kept in the library for
+# side-by-side timing; only ``previous_design`` calls it.
+PREVIOUS_SYMBOL = "flash_attention_bwd_previous"
+ROUTE_SYMBOL = "flash_attention_bwd_route"
+ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma"}
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,12 +43,37 @@ _ARGTYPES = (
 )
 
 
-def _fn():
-    fn = getattr(_build.load(NAME), SYMBOL)
+def _fn(symbol: str = SYMBOL):
+    fn = getattr(_build.load(NAME), symbol)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernels a call with this dtype and head dim runs, by the rule
+    above: "wgmma", "mma_sync" or "fma"; raises for what no route takes
+    (head dims are multiples of 8, up to 256 in bfloat16 and 128 in
+    float32, the first design's shared memory)."""
+    if d % 8 or d < 8 or dtype not in _DTYPES or d > (128 if dtype == torch.float32 else 256):
+        raise ValueError(f"no backward route for {dtype} at head dim {d}: head dims are "
+                         "multiples of 8 up to 256 (128 in float32)")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if d <= 128 else "mma_sync"
+
+
+def kernel_route(dtype: torch.dtype, d: int) -> str:
+    """The route the built library's dispatch takes for (dtype, D), from
+    its own ``route`` (to hold against ``route``); needs the library."""
+    lib = _build.load(NAME)
+    fn = getattr(lib, ROUTE_SYMBOL)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    got = fn(_DTYPES.get(dtype, -1), d)
+    if got not in ROUTES:
+        raise ValueError(f"no backward route for {dtype} at head dim {d}")
+    return ROUTES[got]
 
 
 def flash_attention_bwd(
@@ -56,6 +92,21 @@ def flash_attention_bwd(
     """(dQ, dK, dV) in the inputs' dtype from the CUDA kernel. CUDA tensors
     only: raises otherwise. Masks and positions as in the forward."""
     global launches
+    out = _launch(SYMBOL, q, k, v, o, do, lse, causal, window, q_pos, kv_pos)
+    launches += 1
+    return out
+
+
+def previous_design(q, k, v, o, do, lse, *, causal=True, window=None, q_pos=None,
+                    kv_pos=None):
+    """The first design (``mma.sync`` for bfloat16 at every D, FMA for
+    float32) on the same arguments, for side-by-side timing. Not counted
+    in ``launches``; nothing on a model's path calls it."""
+    return _launch(PREVIOUS_SYMBOL, q, k, v, o, do, lse, causal, window, q_pos, kv_pos)
+
+
+def _launch(symbol, q, k, v, o, do, lse, causal, window, q_pos, kv_pos):
+    """Check the arguments and run one call of the C entry point ``symbol``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES:
@@ -66,8 +117,7 @@ def flash_attention_bwd(
     skv, kv = k.shape[1], k.shape[2]
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} kv heads")
-    if d % 8 or d > 256 or (q.dtype == torch.float32 and d > 128):
-        raise ValueError(f"head dim {d} must be a multiple of 8 up to 256 (128 in float32)")
+    route(q.dtype, d)  # raises for a head dim no route takes
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     check_flash_masks(s, skv, causal, window, q_pos, kv_pos)
@@ -85,7 +135,7 @@ def flash_attention_bwd(
         _check("kv_pos", kv_pos, (b, skv), torch.int32, dev)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = _fn()(
+    err = _fn(symbol)(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), q_pos.data_ptr() if use_pos else None,
@@ -94,9 +144,9 @@ def flash_attention_bwd(
         1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
-        raise RuntimeError(f"{SYMBOL} launch failed: cudaError {err}")
-    launches += 1
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
     return dq, dk, dv
 
 
-__all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "launches"]
+__all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "launches", "previous_design",
+           "route"]

@@ -11,8 +11,11 @@ float32.
 ``flash_attention_fwd_lse_plain`` adds the log-sum-exp the flash
 forward writes for its backward, and ``flash_attention_bwd_plain`` is
 the backward kernel's FlashAttention-2 recurrences written out (not
-autograd); float64 inputs keep float64 in the flash functions, so the
-CPU tests can compare algorithms without float32 summation order.
+autograd); ``flash_attention_bwd_tiled_plain`` is the plain twin of the
+backward's wgmma route, walking its 64 x 64 tiles in its order (the
+tiles ``flash_bwd_walks`` keeps); float64 inputs keep float64 in the
+flash functions, so the CPU tests can compare algorithms without
+float32 summation order.
 ``decode_attention_split_plain`` is the plain twin of the decode
 kernel's two passes (per-split partials, then their combine in split
 order); ``wkv6_chunked_plain`` is the plain twin of the chunked wkv6
@@ -47,13 +50,9 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _flash_logits(q, k, v, causal, window, q_pos, kv_pos):
-    """The flash functions' shared front: the argument checks, then the
-    scaled logits (B, KV, G, S, S_kv) in ``_acc``'s type and the mask (B,
-    1, 1, S, S_kv)."""
-    b, s, h, d = q.shape
-    skv, kv = k.shape[1], k.shape[2]
-    g = h // kv
+def _check_flash_args(s, skv, causal, window, q_pos, kv_pos) -> None:
+    """The flash functions' argument checks, the positions' precondition
+    under a causal mask included."""
     check_flash_masks(s, skv, causal, window, q_pos, kv_pos)
     if causal and q_pos is not None:
         check_nondecreasing("q_pos", q_pos)
@@ -61,6 +60,16 @@ def _flash_logits(q, k, v, causal, window, q_pos, kv_pos):
         if bool((kv_pos[:, 0] > q_pos[:, 0]).any()):
             raise ValueError("under a causal mask every query needs a key at or before it: "
                              "kv_pos[:, 0] <= q_pos[:, 0]")
+
+
+def _flash_logits(q, k, v, causal, window, q_pos, kv_pos):
+    """The flash functions' shared front: the argument checks, then the
+    scaled logits (B, KV, G, S, S_kv) in ``_acc``'s type and the mask (B,
+    1, 1, S, S_kv)."""
+    b, s, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    _check_flash_args(s, skv, causal, window, q_pos, kv_pos)
     qg = _acc(q.reshape(b, s, kv, g, d))
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, _acc(k)) / math.sqrt(d)
     if q_pos is None:
@@ -169,6 +178,117 @@ def flash_attention_bwd_plain(
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, _acc(k)) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, _acc(q.reshape(b, s, kv, g, d))) * scale
     return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+BWD_TILE = 64  # the backward's wgmma route: queries and keys per tile, one wgmma M or N
+
+
+def flash_bwd_tile_live(q_lo: int, k_lo: int, s: int, causal: bool, window, qp=None,
+                        kp=None) -> bool:
+    """The backward kernel's ``tile_live`` (the forward's tile skip): False
+    only when every pair of the (64 queries from ``q_lo``, 64 keys from
+    ``k_lo``) tile is masked. With positions ``qp`` / ``kp`` (one row,
+    non-decreasing under a causal mask) only the causal skip applies."""
+    q_last = min(q_lo + BWD_TILE, s) - 1
+    if kp is not None:
+        return not (causal and int(kp[k_lo]) > int(qp[q_last]))
+    if causal and k_lo > q_last:
+        return False
+    if window is not None and k_lo + BWD_TILE - 1 <= q_lo - window:
+        return False
+    return True
+
+
+def flash_bwd_walks(s: int, skv: int, causal: bool, window, qp=None, kp=None):
+    """The wgmma route's walks for one batch row: (for each 64-key tile,
+    the query tiles its dK/dV block multiplies, in order: the run
+    ``[t_lo, t_hi]`` that ``flash_bwd_tile_live`` keeps, each tile kept
+    again; for each 64-query tile, the kv tiles its dQ block multiplies).
+    The dK/dV block walks its list once per head of the group."""
+    n_q, n_kv = -(-s // BWD_TILE), -(-skv // BWD_TILE)
+
+    def walk(n, live):
+        kept = [t for t in range(n) if live(t)]
+        return [t for t in range(kept[0], kept[-1] + 1) if live(t)] if kept else []
+
+    dkdv = [walk(n_q, lambda t, kt=kt: flash_bwd_tile_live(
+        BWD_TILE * t, BWD_TILE * kt, s, causal, window, qp, kp)) for kt in range(n_kv)]
+    dq = [walk(n_kv, lambda t, qt=qt: flash_bwd_tile_live(
+        BWD_TILE * qt, BWD_TILE * t, s, causal, window, qp, kp)) for qt in range(n_q)]
+    return dkdv, dq
+
+
+def flash_attention_bwd_tiled_plain(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S_kv, KV, D)
+    v: torch.Tensor,
+    o: torch.Tensor,  # (B, S, H, D) the forward's output
+    do: torch.Tensor,  # (B, S, H, D) the gradient of o
+    lse: torch.Tensor,  # (B, H, S) float32, the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_pos: Optional[torch.Tensor] = None,
+    kv_pos: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) as the backward's wgmma route computes them
+    (``csrc/flash_attention_bwd.cu``'s ``dkdv_wgmma_kernel`` and
+    ``dq_wgmma_kernel``), tile by tile in their order: dK and dV of each
+    64-key tile summed over the group's heads in turn and, per head, over
+    the query tiles of ``flash_bwd_walks``; dQ of each 64-query tile over
+    its kv tiles. Each step recomputes S, P = exp(S scale - LSE) under the
+    element mask, dP and dS = P (dP - Delta) on its tile; on bfloat16
+    inputs P and dS are rounded to bfloat16 before they are multiplied,
+    as the kernel's tensor-core operands are. Same function as
+    ``flash_attention_bwd_plain``; only the order of the float32 sums
+    differs."""
+    b, s, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    _check_flash_args(s, skv, causal, window, q_pos, kv_pos)
+    scale = 1.0 / math.sqrt(d)
+    low = q.dtype not in (torch.float32, torch.float64)
+    rnd = (lambda x: x.to(q.dtype).float()) if low else (lambda x: x)
+    qf, kf, vf, dof = (_acc(t) for t in (q, k, v, do))
+    delta = (dof * _acc(o)).sum(-1)  # (B, S, H)
+    lsef = lse.to(qf.dtype)
+    use_pos = q_pos is not None and (causal or window is not None)
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    t = BWD_TILE
+    for bi in range(b):
+        qp = q_pos[bi].long() if use_pos else torch.arange(s)
+        kp = kv_pos[bi].long() if use_pos else torch.arange(skv)
+        kv_walks, q_walks = flash_bwd_walks(s, skv, causal, window,
+                                            qp if use_pos else None, kp if use_pos else None)
+
+        def step(qt, kt, hq):
+            """(query slice, key slice, P, dS) of one tile of head hq."""
+            qs = slice(t * qt, min(t * qt + t, s))
+            ks = slice(t * kt, min(t * kt + t, skv))
+            mask = torch.ones((qs.stop - qs.start, ks.stop - ks.start), dtype=torch.bool)
+            if causal:
+                mask &= kp[ks][None, :] <= qp[qs][:, None]
+            if window is not None:
+                mask &= kp[ks][None, :] > qp[qs][:, None] - window
+            sc = qf[bi, qs, hq] @ kf[bi, ks, hq // g].T * scale
+            p = torch.where(mask, torch.exp(sc - lsef[bi, hq, qs][:, None]), 0.0)
+            dp = dof[bi, qs, hq] @ vf[bi, ks, hq // g].T
+            ds = p * (dp - delta[bi, qs, hq][:, None])
+            return qs, ks, rnd(p), rnd(ds)
+
+        for kt, q_tiles in enumerate(kv_walks):
+            for kh in range(kv):
+                for hq in range(kh * g, (kh + 1) * g):
+                    for qt in q_tiles:
+                        qs, ks, p, ds = step(qt, kt, hq)
+                        dv[bi, ks, kh] += p.T @ dof[bi, qs, hq]
+                        dk[bi, ks, kh] += ds.T @ qf[bi, qs, hq]
+        for qt, k_tiles in enumerate(q_walks):
+            for hq in range(h):
+                for kt in k_tiles:
+                    qs, ks, _, ds = step(qt, kt, hq)
+                    dq[bi, qs, hq] += ds @ kf[bi, ks, hq // g]
+    return (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
 def check_flash_masks(s: int, skv: int, causal: bool, window, q_pos, kv_pos) -> None:

@@ -844,6 +844,11 @@ BWD_CASES = [
     (2, 300, 300, 8, 2, 128, True, None, True),
     (2, 130, 130, 4, 1, 16, False, 9, True),
     (1, 64, 64, 4, 4, 256, True, None, False),
+    # ragged S at the wgmma route's 128-query and 64-key block edges
+    (2, 129, 129, 8, 2, 64, True, None, False),
+    (2, 255, 255, 8, 2, 64, True, None, False),
+    (2, 200, 200, 8, 2, 96, True, None, False),  # D zero-padded inside a 128 block
+    (1, 257, 257, 64, 8, 64, True, None, True),  # group 8, positions
 ]
 
 
@@ -871,8 +876,9 @@ BWD_DTYPE_CASES = [(dtype, case) for dtype in (torch.float32, torch.bfloat16)
     for d, c in BWD_DTYPE_CASES])
 def test_flash_backward_kernel_on_card(cuda, dtype, case):
     """The forward's log-sum-exp against the plain one; the backward kernel
-    (dQ, dK, dV) against ``flash_attention_bwd_plain`` on the kernel's own O
-    and LSE, for every mask mode and GQA group; two calls torch.equal."""
+    (dQ, dK, dV) and its previous design against ``flash_attention_bwd_plain``
+    on the kernel's own O and LSE, for every mask mode and GQA group; two
+    calls of each torch.equal."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels.ref import flash_attention_fwd_lse_plain
@@ -886,12 +892,40 @@ def test_flash_backward_kernel_on_card(cuda, dtype, case):
     got = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
     again = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
     assert ops.launch_counts()["flash_attention_bwd"] == before + 2
+    prev = fb.previous_design(q, k, v, out, do, lse, **kw)
+    prev_again = fb.previous_design(q, k, v, out, do, lse, **kw)
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 2
     want = fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
-    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
-        assert g.dtype == dtype and g.shape == w.shape, name
-        assert torch.equal(g, a), f"{name}: two calls differ"
-        torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype], rtol=TOL[dtype],
-                                   msg=lambda m, n=name: f"{n}: {m}")
+    for design, first, second in (("kernel", got, again), ("previous", prev, prev_again)):
+        for name, g, a, w in zip(("dq", "dk", "dv"), first, second, want):
+            label = f"{design} {name}"
+            assert g.dtype == dtype and g.shape == w.shape, label
+            assert torch.equal(g, a), f"{label}: two calls differ"
+            torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype], rtol=TOL[dtype],
+                                       msg=lambda m, n=label: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+def test_flash_backward_routes_on_card(cuda):
+    """Each (dtype, D) takes the route the kernel's header states, by the
+    built library's own dispatch: bf16 D <= 128 wgmma, bf16 D > 128
+    mma.sync, float32 FMA (D <= 128); the rest refused by both."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    want = {torch.bfloat16: lambda d: "wgmma" if d <= 128 else "mma_sync",
+            torch.float32: lambda d: "fma"}
+    for dtype, rule in want.items():
+        for d in (8, 16, 32, 64, 96, 128, 136, 192, 256):
+            if dtype == torch.float32 and d > 128:
+                for fn in (fb.route, fb.kernel_route):
+                    with pytest.raises(ValueError):
+                        fn(dtype, d)
+                continue
+            assert fb.route(dtype, d) == fb.kernel_route(dtype, d) == rule(d), (dtype, d)
+        for d in (12, 264):
+            for fn in (fb.route, fb.kernel_route):
+                with pytest.raises(ValueError):
+                    fn(dtype, d)
 
 
 @pytest.mark.cuda

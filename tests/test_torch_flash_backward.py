@@ -10,6 +10,14 @@ forward at 1e-6; the plain forward's log-sum-exp against ``logsumexp`` of
 the masked scores. Inputs come from numpy with a seed. Cases: causal,
 windowed, non-causal with S_kv != S (cross-attention) and position-valued
 (M-RoPE's temporal stream), GQA groups 1 and 4, S not a multiple of 64.
+
+``flash_attention_bwd_tiled_plain``, the plain twin of the backward's
+wgmma route (its 64 x 64 tiles, its walk and skips, its bf16 rounding
+points), against the plain version and ``jax.grad`` of
+``flash_attention_xla`` at 2e-5 in float32 for every case above and for
+ragged S at the tile edges and windows that straddle one; in bfloat16
+against the plain version at the GPU tests' 2e-2; and its walk: every
+tile it skips wholly masked, the heaviest blocks first in launch order.
 """
 import math
 
@@ -23,9 +31,12 @@ from repro.kernels import ref as jref
 from repro.models.attention import flash_attention_xla
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
+    BWD_TILE,
     flash_attention_bwd_plain,
+    flash_attention_bwd_tiled_plain,
     flash_attention_fwd_lse_plain,
     flash_attention_ref,
+    flash_bwd_walks,
 )
 
 TOL = 2e-5
@@ -55,6 +66,19 @@ CASES = {
     "positions-g4": (2, 90, 90, 8, 2, 16, True, None, True),
     "positions-window-g1": (2, 67, 67, 4, 4, 16, True, 11, True),
 }
+
+
+# The wgmma route's tile edges (64 queries, 64 keys): ragged S on both
+# sides of an edge, windows that end inside a tile or straddle one.
+TILED_CASES = dict(CASES, **{
+    "ragged-129-g4": (2, 129, 129, 8, 2, 16, True, None, False),
+    "ragged-191-g1": (1, 191, 191, 4, 4, 16, True, None, False),
+    "window-64-straddle-g4": (2, 150, 150, 8, 2, 16, True, 64, False),
+    "window-70-g1": (1, 200, 200, 4, 4, 8, True, 70, False),
+    "cross-ragged-g2": (1, 65, 130, 4, 2, 16, False, None, False),
+    "positions-ragged-g4": (2, 129, 129, 8, 2, 16, True, None, True),
+    "positions-window-straddle-g8": (1, 140, 140, 8, 1, 16, True, 65, True),
+})
 
 
 def _inputs(case, seed=0):
@@ -175,3 +199,83 @@ def test_plain_backward_rounds_bf16_operands():
     for g, w in zip(got, (dq, dk, dv)):
         assert g.dtype == torch.bfloat16
         torch.testing.assert_close(g.float(), w, atol=5e-2, rtol=5e-2)
+
+
+def _tiled_and_plain(case, dtype=torch.float32):
+    q, k, v, do, pos = _inputs(case)
+    kw = _mask_kw(case, pos)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype) for x in (q, k, v, do))
+    o, lse = flash_attention_fwd_lse_plain(tq, tk, tv, **kw)
+    args = (tq, tk, tv, o, tdo, lse)
+    return flash_attention_bwd_tiled_plain(*args, **kw), flash_attention_bwd_plain(*args, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(TILED_CASES))
+def test_tiled_backward_matches_plain(name):
+    """The wgmma route's tile walk against the whole-matrix recurrences:
+    the same function, float32 summed in another order (2e-5)."""
+    got, want = _tiled_and_plain(TILED_CASES[name])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", sorted(TILED_CASES))
+def test_tiled_backward_matches_jax_flash_xla(name):
+    case = TILED_CASES[name]
+    (dq, dk, dv), _ = _tiled_and_plain(case)
+    causal, window = case[6], case[7]
+    want = _jax_grads(case, lambda q, k, v, qp, kp: flash_attention_xla(
+        q, k, v, qp, kp, causal=causal, window=window, kv_chunk=32))
+    for got, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ["causal-g4", "ragged-129-g4", "window-64-straddle-g4",
+                                  "positions-ragged-g4", "cross-g4"])
+def test_tiled_backward_rounds_bf16_like_plain(name):
+    """On bfloat16 inputs the twin rounds P and dS where the kernel does,
+    tile by tile: within the GPU tests' bf16 tolerance (2e-2) of the
+    plain version, which rounds at the same points over whole matrices."""
+    got, want = _tiled_and_plain(TILED_CASES[name], torch.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("name", sorted(TILED_CASES))
+def test_tile_walk_skips_only_masked_tiles(name):
+    """Every (query tile, key tile) that a walk leaves out is wholly
+    masked, and each walk is ascending; for arange causal masks the dK/dV
+    walks shorten with the key tile and the dQ walks lengthen with the
+    query tile, so the kernels' launch orders (first keys, last queries
+    first) start the longest blocks first."""
+    b, s, skv, h, kvh, d, causal, window, with_pos = TILED_CASES[name]
+    _, _, _, _, pos = _inputs(TILED_CASES[name])
+    for bi in range(b):
+        qp = np.asarray(pos[bi]) if with_pos else np.arange(s)
+        kp = np.asarray(pos[bi]) if with_pos else np.arange(skv)
+        mask = np.ones((s, skv), bool)
+        if causal:
+            mask &= kp[None, :] <= qp[:, None]
+        if window is not None:
+            mask &= kp[None, :] > qp[:, None] - window
+        walks = flash_bwd_walks(s, skv, causal, window, qp if with_pos else None,
+                                kp if with_pos else None)
+        dkdv, dq = walks
+        t = BWD_TILE
+        tile = lambda qt, kt: mask[t * qt:t * qt + t, t * kt:t * kt + t]
+        for kt, q_tiles in enumerate(dkdv):
+            assert q_tiles == sorted(set(q_tiles))
+            for qt in range(-(-s // t)):
+                if qt not in q_tiles:
+                    assert not tile(qt, kt).any(), (name, "dkdv", kt, qt)
+        for qt, k_tiles in enumerate(dq):
+            assert k_tiles == sorted(set(k_tiles))
+            for kt in range(-(-skv // t)):
+                if kt not in k_tiles:
+                    assert not tile(qt, kt).any(), (name, "dq", qt, kt)
+        assert sum(map(len, dkdv)) == sum(map(len, dq))  # the same tiles, by keys or by queries
+        if causal and not with_pos and window is None:
+            assert [len(w) for w in dkdv] == sorted((len(w) for w in dkdv), reverse=True)
+            assert [len(w) for w in dq] == sorted(len(w) for w in dq)
