@@ -7,11 +7,14 @@ fallback: a CUDA tensor either launches the kernel or the call raises.
 This replaces the JAX package's interpret-mode switch.
 
 Gradients: on the CPU every plain version is differentiable by autograd.
-On the card, flash attention has a backward kernel
-(``flash_attention.FlashAttentionFn``); ``decode_attention``, ``wkv6`` and
-``rglru_scan`` have none yet and raise a ``RuntimeError`` when autograd
-is recording and an input requires a gradient, rather than give a loss
-that no gradient flows back through (a plain version never stands in).
+On the card, flash attention, ``wkv6`` and ``rglru_scan`` have backward
+kernels (``flash_attention.FlashAttentionFn``, ``wkv6.WKV6Fn``,
+``rglru.RGLRUScanFn``), which the wrappers take when autograd is
+recording and an input requires a gradient; under ``no_grad`` they make
+the same call as before and save nothing. ``decode_attention`` has none
+(training never decodes) and raises a ``RuntimeError`` then, rather than
+give a loss that no gradient flows back through (a plain version never
+stands in).
 """
 from __future__ import annotations
 
@@ -23,14 +26,18 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import rglru as _rglru
+from repro_torch.kernels import rglru_bwd as _rglru_bwd
 from repro_torch.kernels import wkv6 as _wkv6
+from repro_torch.kernels import wkv6_bwd as _wkv6_bwd
 
 _KERNELS = {
     "decode_attention": _decode,
     "flash_attention": _flash,
     "flash_attention_bwd": _flash_bwd,
     "wkv6": _wkv6,
+    "wkv6_bwd": _wkv6_bwd,
     "rglru_scan": _rglru,
+    "rglru_bwd": _rglru_bwd,
 }
 
 
@@ -45,10 +52,6 @@ def _on_cuda(t: torch.Tensor) -> bool:
 # Why a kernel without a backward refuses a gradient on the card.
 _NO_BACKWARD = {
     "decode_attention": "decode_attention has no backward kernel: training never decodes",
-    "wkv6": "wkv6 has no backward kernel yet (ROADMAP.md §A: the wkv6 and rglru_scan "
-            "backward kernels are the next slice)",
-    "rglru_scan": "rglru_scan has no backward kernel yet (ROADMAP.md §A: the wkv6 and "
-                  "rglru_scan backward kernels are the next slice)",
 }
 
 
@@ -105,7 +108,6 @@ def rglru_scan(
     h0: Optional[torch.Tensor] = None,  # (B, D) float32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     if _on_cuda(a):
-        _refuse_grad("rglru_scan", a, b, h0)
         return _rglru.rglru_scan(a, b, h0)
     return _rglru.rglru_scan_plain(a, b, h0)
 
@@ -121,9 +123,9 @@ def wkv6(
     state_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``state_out`` (optional, may be ``state``) receives the last state
-    in place: the kernel writes it there directly, the plain path copies."""
+    in place: the kernel writes it there directly, the plain path copies.
+    The kernel refuses it when a gradient is required."""
     if _on_cuda(r):
-        _refuse_grad("wkv6", r, k, v, w, u, state)
         return _wkv6.wkv6(r, k, v, w, u, state, state_out=state_out)
     return _wkv6.wkv6_plain(r, k, v, w, u, state, state_out=state_out)
 

@@ -13,9 +13,11 @@ forward writes for its backward, and ``flash_attention_bwd_plain`` is
 the backward kernel's FlashAttention-2 recurrences written out (not
 autograd); ``flash_attention_bwd_tiled_plain`` is the plain twin of the
 backward's wgmma route, walking its 64 x 64 tiles in its order (the
-tiles ``flash_bwd_walks`` keeps); float64 inputs keep float64 in the
-flash functions, so the CPU tests can compare algorithms without
-float32 summation order.
+tiles ``flash_bwd_walks`` keeps). ``rglru_bwd_plain`` and
+``wkv6_bwd_plain`` are the two recurrences' backward kernels written out
+(reverse-time recurrences, not autograd). float64 inputs keep float64 in
+the flash functions and in both recurrences forward and backward, so the
+CPU tests can compare algorithms without float32 summation order.
 ``decode_attention_split_plain`` is the plain twin of the decode
 kernel's two passes (per-split partials, then their combine in split
 order); ``wkv6_chunked_plain`` is the plain twin of the chunked wkv6
@@ -407,13 +409,15 @@ def rglru_ref(
     h0: Optional[torch.Tensor] = None,  # (B, D)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential linear recurrence h_t = a_t h_{t-1} + b_t. Returns
-    (h for every step in a's dtype, last h in float32)."""
+    (h for every step in a's dtype, last h in float32; float64 throughout
+    for float64 inputs)."""
     bsz, s, d = a.shape
+    acc = torch.promote_types(a.dtype, torch.float32)
     if h0 is None:
-        h = torch.zeros((bsz, d), dtype=torch.float32, device=a.device)
+        h = torch.zeros((bsz, d), dtype=acc, device=a.device)
     else:
-        h = h0.float()
-    af, bf = a.float(), b_in.float()
+        h = h0.to(acc)
+    af, bf = a.to(acc), b_in.to(acc)
     hs = []
     for t in range(s):
         h = af[:, t] * h + bf[:, t]
@@ -431,21 +435,106 @@ def wkv6_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RWKV-6 recurrence, one step at a time:
     o_t = r_t (S + diag(u) k_t^T v_t), S <- diag(w_t) S + k_t^T v_t.
-    Returns (o in r's dtype, last state in float32)."""
+    Returns (o in r's dtype, last state in float32; float64 throughout
+    for float64 inputs)."""
     b, s, h, dk = r.shape
     dv = v.shape[-1]
+    acc = torch.promote_types(r.dtype, torch.float32)
     if state is None:
-        st = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+        st = torch.zeros((b, h, dk, dv), dtype=acc, device=r.device)
     else:
-        st = state.float()
-    rf, kf, vf, wf = r.float(), k.float(), v.float(), w.float()
-    uf = u.float()[None, :, :, None]
+        st = state.to(acc)
+    rf, kf, vf, wf = r.to(acc), k.to(acc), v.to(acc), w.to(acc)
+    uf = u.to(acc)[None, :, :, None]
     outs = []
     for t in range(s):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B, H, K, V)
         outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], st + uf * kv))
         st = wf[:, t, :, :, None] * st + kv
     return torch.stack(outs, dim=1).to(r.dtype), st
+
+
+def rglru_bwd_plain(
+    a: torch.Tensor,  # (B, S, D) the forward's decay
+    h: torch.Tensor,  # (B, S, D) the forward's output (h for every step)
+    dh: torch.Tensor,  # (B, S, D) the gradient of h
+    dh_last: Optional[torch.Tensor] = None,  # (B, D) the gradient of the last h
+    h0: Optional[torch.Tensor] = None,  # (B, D) the forward's initial h
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(da, db, dh0) of ``h_t = a_t h_{t-1} + b_t``: the backward kernel's
+    reverse-time recurrence written out, not autograd. With g_t the
+    gradient of h_t, seeded by ``dh_last``: g_t = dh_t + a_{t+1} g_{t+1},
+    db_t = g_t, da_t = g_t h_{t-1} (``h0`` before the first step, zeros
+    when absent), dh0 = a_1 g_1. float32 arithmetic (float64 for float64
+    inputs); da and db in a's dtype, dh0 in float32 (float64)."""
+    bsz, s, d = a.shape
+    acc = torch.promote_types(a.dtype, torch.float32)
+    af, hf, gf = a.to(acc), h.to(acc), dh.to(acc)
+    carry = (torch.zeros((bsz, d), dtype=acc, device=a.device) if dh_last is None
+             else dh_last.to(acc))
+    prev0 = (torch.zeros((bsz, d), dtype=acc, device=a.device) if h0 is None
+             else h0.to(acc))
+    da, db = torch.empty_like(af), torch.empty_like(af)
+    for t in range(s - 1, -1, -1):
+        g = gf[:, t] + carry
+        db[:, t] = g
+        da[:, t] = g * (hf[:, t - 1] if t > 0 else prev0)
+        carry = af[:, t] * g
+    return da.to(a.dtype), db.to(a.dtype), carry
+
+
+def wkv6_bwd_plain(
+    r: torch.Tensor,  # (B, S, H, K)
+    k: torch.Tensor,  # (B, S, H, K)
+    v: torch.Tensor,  # (B, S, H, V)
+    w: torch.Tensor,  # (B, S, H, K)
+    u: torch.Tensor,  # (H, K)
+    do: torch.Tensor,  # (B, S, H, V) the gradient of o
+    state: Optional[torch.Tensor] = None,  # (B, H, K, V) the initial state
+    d_state: Optional[torch.Tensor] = None,  # (B, H, K, V) the gradient of the last state
+) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du, d_state0) of ``wkv6_ref``: the backward
+    kernel's reverse-time recurrences written out, not autograd. With G_t
+    the gradient of the state after step t (seeded by ``d_state``) and
+    S_{t-1} the state entering step t, walking t from last to first:
+
+    - dr_t = do_t (S_{t-1} + diag(u) k_tᵀ v_t)ᵀ;
+    - with X = G_t + diag(u) r_tᵀ do_t (the gradient of k_tᵀ v_t):
+      dk_t = X v_tᵀ, dv_t = k_t X;
+    - dw_t = rowsum(G_t ⊙ S_{t-1});
+    - du += r_t ⊙ k_t (do_t · v_t), summed over batch and time;
+    - G_{t-1} = diag(w_t) G_t + r_tᵀ do_t; d_state0 = G_0.
+
+    The sequential recurrence's derivative: no clamp on w (the chunked
+    forward's ``WKV_LOG_CLAMP`` is not differentiated). float32 arithmetic
+    (float64 for float64 inputs); dr, dk, dv in r's dtype, dw in w's, du
+    in u's, d_state0 in float32 (float64)."""
+    b, s, h, dk = r.shape
+    dv = v.shape[-1]
+    acc = torch.promote_types(r.dtype, torch.float32)
+    rf, kf, vf, wf, df = (x.to(acc) for x in (r, k, v, w, do))
+    uf = u.to(acc)[None, :, :, None]  # (1, H, K, 1)
+    st = (torch.zeros((b, h, dk, dv), dtype=acc, device=r.device) if state is None
+          else state.to(acc))
+    states = []  # S_{t-1} for every t
+    for t in range(s):
+        states.append(st)
+        st = wf[:, t, :, :, None] * st + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    g = (torch.zeros((b, h, dk, dv), dtype=acc, device=r.device) if d_state is None
+         else d_state.to(acc))
+    gr, gk, gv, gw = (torch.empty_like(x) for x in (rf, kf, vf, wf))
+    gu = torch.zeros((h, dk), dtype=acc, device=r.device)
+    for t in range(s - 1, -1, -1):
+        rt, kt, vt, wt, dt = rf[:, t], kf[:, t], vf[:, t], wf[:, t], df[:, t]
+        kv = kt[..., :, None] * vt[..., None, :]  # (B, H, K, V)
+        gr[:, t] = torch.einsum("bhkv,bhv->bhk", states[t] + uf * kv, dt)
+        x = g + uf * (rt[..., :, None] * dt[..., None, :])
+        gk[:, t] = torch.einsum("bhkv,bhv->bhk", x, vt)
+        gv[:, t] = torch.einsum("bhkv,bhk->bhv", x, kt)
+        gw[:, t] = (g * states[t]).sum(-1)
+        gu += (rt * kt * (dt * vt).sum(-1, keepdim=True)).sum(0)
+        g = wt[..., :, None] * g + rt[..., :, None] * dt[..., None, :]
+    return (gr.to(r.dtype), gk.to(k.dtype), gv.to(v.dtype), gw.to(w.dtype), gu.to(u.dtype), g)
 
 
 WKV_LOG_CLAMP = -60.0  # log w is clamped below here: w = 0 stays finite

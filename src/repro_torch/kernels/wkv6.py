@@ -26,6 +26,14 @@ always takes one path and two calls agree bit for bit:
 ``launches`` counts calls that launched a kernel: one per call, though a
 chunked call is three CUDA launches. ``previous_design`` runs the
 sequential kernel on any shape, for side-by-side timing only.
+
+Gradients: when autograd is recording and any of r, k, v, w, u or the
+initial state requires a gradient, ``wkv6`` runs ``WKV6Fn``: its forward
+is the same kernel (the design ``uses_chunked`` picks) and saves its
+inputs; its backward is the hand-written backward kernel
+(``wkv6_bwd.py``, counted there), which recomputes the states from them.
+``state_out`` (the decode arena, written in place) is refused there.
+Otherwise the call saves nothing, so serving is unchanged.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import wkv6_bwd as _bwd
 from repro_torch.kernels.decode_attention import _check
 from repro_torch.kernels.ref import wkv6_ref
 
@@ -131,6 +140,28 @@ def _launch(r, k, v, w, u, state, state_out, chunked: bool):
     return out, state_out
 
 
+class WKV6Fn(torch.autograd.Function):
+    """The kernel with a gradient: forward saving its inputs, backward by
+    the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        global launches
+        out = _launch(r, k, v, w, u, state, None, uses_chunked(r.dtype, r.shape[1]))
+        launches += 1
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, do, d_state):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros(v.shape, dtype=r.dtype, device=r.device)
+        return _bwd.wkv6_bwd(r, k, v, w, u, do.contiguous(), state,
+                             None if d_state is None else d_state.contiguous())
+
+
 def wkv6(
     r: torch.Tensor,  # (B, S, H, K)
     k: torch.Tensor,  # (B, S, H, K)
@@ -144,8 +175,15 @@ def wkv6(
     """Launch the CUDA kernel that ``uses_chunked`` picks. CUDA tensors
     only: raises otherwise. Returns (o, last state). The last state goes to
     ``state_out`` when given, which may be ``state`` itself: the serving
-    engine's arena is then updated in place."""
+    engine's arena is then updated in place. Through ``WKV6Fn`` when a
+    gradient is required of an input; ``state_out`` is refused then."""
     global launches
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, state)):
+        if state_out is not None:
+            raise ValueError("wkv6: state_out (written in place) cannot take part in autograd; "
+                             "pass state_out=None when a gradient is required")
+        return WKV6Fn.apply(r, k, v, w, u, state)
     out = _launch(r, k, v, w, u, state, state_out, uses_chunked(r.dtype, r.shape[1]))
     launches += 1
     return out
@@ -158,4 +196,4 @@ def previous_design(r, k, v, w, u, state=None, *, state_out=None):
     return _launch(r, k, v, w, u, state, state_out, chunked=False)
 
 
-__all__ = ["wkv6", "wkv6_plain", "launches", "uses_chunked", "previous_design"]
+__all__ = ["WKV6Fn", "wkv6", "wkv6_plain", "launches", "uses_chunked", "previous_design"]

@@ -24,7 +24,11 @@ two recurrences through ``repro_torch.kernels.ops`` (the hand-written
 kernel for CUDA tensors, its plain version for CPU tensors); ``"dense"``
 runs the plain scans on any device. The reference's prefill uses an
 associative scan for RG-LRU under ``"xla"``; the port's plain scan is
-sequential (the same function, summed in time order).
+sequential (the same function, summed in time order). Under autograd the
+kernel path's gradients come from the two recurrences' backward kernels
+(``kernels/wkv6_bwd.py``, ``kernels/rglru_bwd.py``); the full-sequence
+forward used in training passes no ``wkv_out``, which the kernel refuses
+then.
 """
 from __future__ import annotations
 

@@ -60,7 +60,7 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     after = ops.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "decode_attention": 1, "flash_attention": 1, "flash_attention_bwd": 0, "wkv6": 0,
-        "rglru_scan": 0}
+        "wkv6_bwd": 0, "rglru_scan": 0, "rglru_bwd": 0}
 
 
 # (B, S, KV, G, D, window, ring): D in {8, 16, 64, 256}, S in {1, 63, 509,
@@ -974,9 +974,10 @@ def test_serving_flash_call_writes_no_lse_and_keeps_no_graph(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_refuse_a_gradient_on_card(cuda):
-    """decode_attention, wkv6 and rglru_scan raise on the card when a
-    gradient is required of them, naming the kernel; under no_grad they
-    run."""
+    """decode_attention, the one kernel without a backward, raises on the
+    card when a gradient is required of it, naming the kernel; under
+    no_grad it runs. wkv6 and rglru_scan now give gradients (their
+    backward kernels), and wkv6 refuses its in-place state_out then."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     qd = torch.randn((2, 1, 4, 64), generator=gen, device=cuda, requires_grad=True)
     ck = torch.randn((2, 64, 2, 64), generator=gen, device=cuda)
@@ -990,15 +991,178 @@ def test_kernels_without_backward_refuse_a_gradient_on_card(cuda):
     r = torch.randn((1, 8, 2, 64), generator=gen, device=cuda, requires_grad=True)
     w = torch.rand((1, 8, 2, 64), generator=gen, device=cuda) * 0.5 + 0.4
     u = torch.randn((2, 64), generator=gen, device=cuda)
-    with pytest.raises(RuntimeError, match="wkv6"):
-        ops.wkv6(r, r.detach(), r.detach(), w, u)
+    before = ops.launch_counts()
+    out, _ = ops.wkv6(r, r.detach(), r.detach(), w, u)
+    (gr,) = torch.autograd.grad(out.sum(), [r])
+    assert torch.isfinite(gr).all()
+    with pytest.raises(ValueError, match="state_out"):
+        buf = torch.zeros((1, 2, 64, 64), device=cuda)
+        ops.wkv6(r, r.detach(), r.detach(), w, u, buf, state_out=buf)
     a = torch.rand((1, 8, 32), generator=gen, device=cuda)
     bb = torch.randn((1, 8, 32), generator=gen, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="rglru_scan"):
-        ops.rglru_scan(a, bb)
+    hs, _ = ops.rglru_scan(a, bb)
+    (gb,) = torch.autograd.grad(hs.sum(), [bb])
+    assert torch.isfinite(gb).all()
+    after = ops.launch_counts()
+    assert after["wkv6_bwd"] - before["wkv6_bwd"] == 1
+    assert after["rglru_bwd"] - before["rglru_bwd"] == 1
     with torch.no_grad():
         ops.wkv6(r, r, r, w, u)
         ops.rglru_scan(a, bb)
+
+
+WKV_BWD_CASES = [(1, 1, 2, 16, False), (2, 37, 2, 16, True), (2, 130, 4, 64, True),
+                 (1, 509, 2, 64, False), (2, 64, 3, 24, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WKV_BWD_CASES, ids=lambda c: "B{}-S{}-H{}-K{}-state{}".format(*c))
+@pytest.mark.parametrize("dtype,w_dtype", WKV_PAIRS)
+def test_wkv6_backward_kernel_on_card(cuda, case, dtype, w_dtype):
+    """The backward kernel against autograd through the plain forward
+    (``wkv6_ref``) with cotangents on o and the last state: float32 at
+    2e-5, bf16 at 2e-2; S ragged against the kernel's 16-step tiles and
+    4-step sub-blocks, K = V < 64; two calls torch.equal."""
+    from repro_torch.kernels import wkv6_bwd as wb
+    from repro_torch.kernels.ref import wkv6_ref
+
+    b, s, h, k, with_state = case
+    r, kk, v, w, u, state = _wkv_inputs(cuda, b, s, h, k, dtype, w_dtype, seed=s + k)
+    state = state if with_state else None
+    g = torch.Generator(device=cuda).manual_seed(3 * s)
+    do = torch.randn((b, s, h, k), generator=g, device=cuda).to(dtype)
+    ds = torch.randn((b, h, k, k), generator=g, device=cuda)
+    ins = [r, kk, v, w, u] + ([state] if with_state else [])
+    leaves = [x.clone().requires_grad_() for x in ins]
+    out, last = wkv6_ref(*leaves[:5], leaves[5] if with_state else None)
+    want = torch.autograd.grad((out.float() * do.float()).sum() + (last * ds).sum(), leaves)
+    before = ops.launch_counts()["wkv6_bwd"]
+    got = wb.wkv6_bwd(r, kk, v, w, u, do, state, ds)
+    again = wb.wkv6_bwd(r, kk, v, w, u, do, state, ds)
+    assert ops.launch_counts()["wkv6_bwd"] == before + 2
+    tol = TOL[dtype]
+    for name, gt, ag, wt in zip(("dr", "dk", "dv", "dw", "du", "d_state0"), got, again, want):
+        assert gt.dtype == wt.dtype and torch.equal(gt, ag), name
+        assert torch.isfinite(gt.float()).all(), name
+        torch.testing.assert_close(gt.float(), wt.float(), atol=tol, rtol=tol, msg=name)
+    assert (got[5] is None) == (not with_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 16), (2, 37, 48), (1, 256, 128), (3, 509, 520)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_backward_kernel_on_card(cuda, shape, dtype, with_h0):
+    """The backward kernel against autograd through the plain forward
+    (``rglru_ref``), cotangents on h and the last h: float32 at 2e-5, bf16
+    at 2e-2 (the kernel reads h_{t-1} from the bf16 output); float32 is
+    the plain backward's bit for bit; two calls torch.equal."""
+    from repro_torch.kernels import rglru_bwd as rb
+
+    b, s, d = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + with_h0)
+    a = (torch.sigmoid(torch.randn(shape, generator=g, device=cuda)) * 0.5 + 0.45).to(dtype)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    h0 = torch.randn((b, d), generator=g, device=cuda) if with_h0 else None
+    dh = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    dlast = torch.randn((b, d), generator=g, device=cuda)
+    leaves = [a.clone().requires_grad_(), x.clone().requires_grad_()]
+    leaves += [h0.clone().requires_grad_()] if with_h0 else []
+    hs, last = rglru_scan_plain(*leaves)
+    want = torch.autograd.grad((hs.float() * dh.float()).sum() + (last * dlast).sum(), leaves)
+    h, _ = ops.rglru_scan(a, x, h0)
+    got = rb.rglru_bwd(a, h, dh, dlast, h0)
+    again = rb.rglru_bwd(a, h, dh, dlast, h0)
+    tol = TOL[dtype]
+    for name, gt, ag, wt in zip(("da", "db", "dh0"), got, again, want):
+        assert gt.dtype == wt.dtype and torch.equal(gt, ag), name
+        torch.testing.assert_close(gt.float(), wt.float(), atol=tol, rtol=tol, msg=name)
+    if dtype == torch.float32:
+        plain = rb.rglru_bwd_plain(a, h, dh, dlast, h0)
+        assert all(torch.equal(gt, pt) for gt, pt in zip(got, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 64, 200])
+def test_recurrences_unchanged_under_no_grad_on_card(cuda, s):
+    """Under no_grad ops.wkv6 and ops.rglru_scan make the serving call: no
+    graph, no backward launch, and outputs bit for bit those of the same
+    kernels taken through their autograd Functions."""
+    r, kk, v, w, u, state = _wkv_inputs(cuda, 2, s, 4, 64, torch.bfloat16, torch.float32, 9)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    a = torch.sigmoid(torch.randn((2, s, 96), generator=g, device=cuda))
+    x = torch.randn((2, s, 96), generator=g, device=cuda)
+    before = ops.launch_counts()
+    with torch.no_grad():
+        o1, l1 = ops.wkv6(r.requires_grad_(), kk, v, w, u, state)
+        h1, hl1 = ops.rglru_scan(a, x.requires_grad_(), None)
+    assert o1.grad_fn is None and h1.grad_fn is None
+    o2, l2 = ops.wkv6(r, kk, v, w, u, state)
+    h2, hl2 = ops.rglru_scan(a, x, None)
+    assert o2.grad_fn is not None and h2.grad_fn is not None
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert torch.equal(h1, h2) and torch.equal(hl1, hl2)
+    after = ops.launch_counts()
+    assert after["wkv6"] - before["wkv6"] == 2 and after["rglru_scan"] - before["rglru_scan"] == 2
+    assert after["wkv6_bwd"] == before["wkv6_bwd"] and after["rglru_bwd"] == before["rglru_bwd"]
+
+
+# Gradient tolerance of each leaf's max abs. tiny rwkv6's float32
+# gradients pass through a per-head group norm of small outputs: on an
+# H100 the dense path alone, on the card against the same dense path on the
+# CPU, differs by up to 2.2e-4 of a leaf's max abs (the kernel path
+# against dense on the card: 1.6e-4); recurrentgemma's by 2.2e-6 (8e-7).
+RECURRENT_GRAD_TOL = {"rwkv6-1.6b": 5e-4, "recurrentgemma-9b": 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_recurrent_train_step_through_kernels_matches_dense_on_card(cuda, arch, monkeypatch):
+    """A tiny float32 recurrent model with remat on: the loss and every
+    parameter leaf's gradient through the kernels (wkv6 / rglru_scan
+    forward, their backward kernels, flash for recurrentgemma's local
+    attention) against impl="dense" (``RECURRENT_GRAD_TOL`` of each leaf's
+    max abs); no
+    plain version runs; two forwards (remat) and one backward per
+    recurrence; then a train step gives a finite loss."""
+    from repro_torch.kernels import rglru as rk
+    from repro_torch.kernels import rglru_bwd as rb
+    from repro_torch.kernels import wkv6_bwd as wb
+    from repro_torch.models import model_for
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_loop as ttl
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((wk, "wkv6_plain"), (rk, "rglru_scan_plain"), (wb, "wkv6_bwd_plain"),
+                      (rb, "rglru_bwd_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    cfg = tiny(arch, remat=True)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    mk, md = model_for(cfg), model_for(dataclasses.replace(cfg, impl="dense"))
+    params = ttl.trainable(mk.init(gen, device=cuda))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 70), generator=gen, device=cuda)}
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+    leaves = tree_leaves(params)
+    before = ops.launch_counts()
+    lk = mk.loss(params, batch["tokens"])
+    gk = torch.autograd.grad(lk, leaves)
+    after = ops.launch_counts()
+    used = {n: after[n] - before[n] for n in after}
+    n_rwkv, n_rglru, n_swa = (kinds.count(x) for x in ("rwkv", "rglru", "swa"))
+    assert used == {"decode_attention": 0, "flash_attention": 2 * n_swa,
+                    "flash_attention_bwd": n_swa, "wkv6": 2 * n_rwkv, "wkv6_bwd": n_rwkv,
+                    "rglru_scan": 2 * n_rglru, "rglru_bwd": n_rglru}
+    ld = md.loss(params, batch["tokens"])
+    gd = torch.autograd.grad(ld, leaves)
+    torch.testing.assert_close(lk, ld, atol=1e-5, rtol=1e-5)
+    for a, w in zip(gk, gd):
+        scale = float(w.abs().max())
+        assert float((a - w).abs().max()) <= RECURRENT_GRAD_TOL[arch] * max(scale, 1e-30)
+    step = ttl.make_train_step(mk, ttl.TrainConfig(adamw=topt.AdamWConfig(warmup_steps=1)))
+    state, met = step(ttl.TrainState(params, topt.init(params)), batch)
+    assert bool(torch.isfinite(met["loss"])) and int(state.opt.step) == 1
 
 
 @pytest.mark.cuda
@@ -1046,7 +1210,8 @@ def test_train_step_through_kernels_matches_dense_on_card(cuda, arch, monkeypatc
     after = ops.launch_counts()
     assert after["flash_attention"] - before["flash_attention"] == 2 * n_attn
     assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == n_attn
-    assert all(after[n] == before[n] for n in ("decode_attention", "wkv6", "rglru_scan"))
+    assert all(after[n] == before[n] for n in ("decode_attention", "wkv6", "wkv6_bwd",
+                                               "rglru_scan", "rglru_bwd"))
     ld = loss(md)
     gd = torch.autograd.grad(ld, leaves)
     torch.testing.assert_close(lk, ld, atol=1e-5, rtol=1e-5)

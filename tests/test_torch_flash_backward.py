@@ -126,8 +126,10 @@ def test_plain_backward_matches_jax_flash_xla(name):
     causal, window = case[6], case[7]
     want = _jax_grads(case, lambda q, k, v, qp, kp: flash_attention_xla(
         q, k, v, qp, kp, causal=causal, window=window, kv_chunk=32))
-    for got, w in zip((dq, dk, dv), want):
-        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=TOL, rtol=TOL)
+    for grad, got, w in zip(("dQ", "dK", "dV"), (dq, dk, dv), want):
+        got, w = got.numpy(), np.asarray(w)
+        np.testing.assert_allclose(got, w, atol=TOL, rtol=TOL, err_msg=(
+            f"{grad}: finite (port, JAX) {np.isfinite(got).all()}, {np.isfinite(w).all()}"))
 
 
 @pytest.mark.parametrize("name", ["causal-g4", "causal-g1", "window-g4", "window-g1"])

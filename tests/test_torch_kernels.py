@@ -200,8 +200,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA"):
         fb.flash_attention_bwd(q, k, v, q, q, torch.zeros(q.shape[0], q.shape[2], q.shape[1]))
+    from repro_torch.kernels import rglru_bwd as rb
+    from repro_torch.kernels import wkv6_bwd as wb
+
+    r = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        wb.wkv6_bwd(r, r, r, r, torch.zeros((2, 8)), r)
+    a = torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        rb.rglru_bwd(a, a, a)
     assert (dk.launches, fk.launches) == before
     counts = tops.launch_counts()
     assert set(counts) == {"decode_attention", "flash_attention", "flash_attention_bwd", "wkv6",
-                           "rglru_scan"}
+                           "wkv6_bwd", "rglru_scan", "rglru_bwd"}
     assert (counts["decode_attention"], counts["flash_attention"]) == before
+    assert counts["wkv6_bwd"] == counts["rglru_bwd"] == 0
