@@ -13,8 +13,10 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              `cuobjdump -sass`, each library's count of tensor-core
              (HGMMA, HMMA) and async-copy (UTMALDG, LDGSTS) instructions;
              fails unless flash_attention and flash_attention_bwd have
-             HGMMA, decode_attention and wkv6 (its chunked design) HMMA,
-             and if a wgmma kernel of flash_attention_bwd spills.
+             HGMMA, decode_attention, wkv6 and wkv6_bwd (their chunked
+             designs) HMMA, and if a wgmma kernel of flash_attention_bwd
+             spills or its four wide-route wgmma kernels are not all
+             built.
 3. kernels — holds each kernel against its plain PyTorch version at the
              main path's shapes, in bf16 (2e-2) and float32 (2e-5): the
              two attention kernels at granite-3-2b's and recurrentgemma-
@@ -75,7 +77,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              logs misses, p99 and each slice's WCETs.
 10. faults — three slices with the watchdog armed: slice0 wedges on its
              third served submit, slice1 is throttled on three spaced
-             submits, behind FaultyDevice. Checks that slice0 is
+             submits, behind FaultyDevice. The slices share one CUDA
+             stream; each job's watchdog clock starts when the stream
+             reaches it (a CUDA event ahead of its launches). Checks that slice0 is
              quarantined as hung with no operator call, slice1 degrades
              but lives, conservation, zero survivor captures; logs the
              time from the stall to the quarantine.
@@ -143,17 +147,22 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              decoder cross (S = 448, S_kv = 1500), qwen2-vl-72b's on the
              mrope phase's position ids, recurrentgemma-9b's local
              attention (B = 1, S = 4096, H = 16, KV = 1, D = 256, window
-             2048, the bf16 D > 128 mma.sync route), each timed
+             2048: the bf16 D > 128 wide wgmma route, its dK/dV split
+             over the group's query heads) and gemma3-12b's layout (KV =
+             8, window 1024: the wide route unsplit), each timed
              (CUDA-graph replays) in turns with its previous design (the
              mma.sync kernels), beside its plain version, the backward of
-             one SDPA call (eager) and its bound. The two recurrences'
+             one SDPA call (eager) and its bound, each design's launches
+             also timed apart (torch.profiler). The two recurrences'
              backward kernels, wkv6_bwd at rwkv6-1.6b's training shape
              (B = 8, S = 1024, H = 32, K = V = 64) and rglru_bwd at
              recurrentgemma-9b's (B = 1, S = 4096, D = 4096), each against
              autograd through its plain forward in bf16 (2e-2) and float32
              (2e-5), with an initial state and at S = 1000, two calls
              torch.equal, timed (CUDA-graph replays) beside the plain
-             backward and the bound. (b) Three full-width runs of 10 steps
+             backward and the bound; wkv6_bwd (bf16: the chunked design)
+             in turns with its sequential design, each design's launches
+             timed apart. (b) Three full-width runs of 10 steps
              of make_train_step (bf16, remat on, seeded Zipf tokens, AdamW):
              granite-3-2b (40 layers, 8 x 1024), rwkv6-1.6b (24 layers,
              8 x 1024) and recurrentgemma-9b (12 of 38 layers: four rglru,
@@ -184,10 +193,11 @@ launched.
 
 Before the last line it prints the nvidia-smi line and one JSON object
 with a row per kernel, seven rows (`previous_ms`: the previous design's
-time, null for rglru_scan and the two recurrences' backward kernels;
+time, null for rglru_scan and rglru_bwd;
 the wkv6 row also has `b1_*` and `decode_*` times and bounds at (1, 512)
 and (8, 1); the attention rows carry `shapes`, a record per timed
-whisper / qwen2-vl / recurrentgemma shape); the last line is the device
+whisper / qwen2-vl / recurrentgemma / gemma3 shape; the backward rows a
+`split` of each design's launches); the last line is the device
 record. A backward kernel's launches are those of the first full-width
 train run that launches it: granite's for flash_attention_bwd, rwkv6's
 for wkv6_bwd, recurrentgemma's for rglru_bwd.
@@ -252,6 +262,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 # half of each late query's keys; 12 of its 38 layers (four rglru, rglru,
 # swa periods) fit one card with AdamW's state (the 38 need about 113 GB).
 RGEMMA_TRAIN_BATCH, RGEMMA_TRAIN_SEQ, RGEMMA_TRAIN_LAYERS, RGEMMA_WINDOW = 1, 4096, 12, 2048
+# gemma3-12b's local attention layout (H 16, KV 8, D 256, window 1024) at
+# recurrentgemma's training length: the wide route without the head split.
+GEMMA3_SEQ, GEMMA3_WINDOW = 4096, 1024
 TRAIN_LR = 5e-4
 # The full-width train phase's ten losses with the backward's first design
 # (the mma.sync kernels; the same seeds and steps, on an H100 80GB HBM3),
@@ -363,6 +376,33 @@ def bound(nbytes: int, flops: int, dtype: str = "bfloat16"):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def launch_split(torch, fn, inputs, calls: int = 10) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches, by the
+    kernel's short name, from torch.profiler over ``calls`` eager calls
+    cycling through ``inputs`` (after two warm-up calls)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(2):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0:
+            m = re.search(r"(\w+_kernel)", ev.key)
+            name = m.group(1) if m else ev.key[:40]
+            out[name] = out.get(name, 0.0) + ev.device_time_total / 1e3 / calls
+    if not out:
+        raise AssertionError("torch.profiler recorded no device time")
+    return out
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
@@ -2606,11 +2646,10 @@ def time_bwd(torch, label, inp, kw, n_pairs, report_err, sdpa_kw):
     inputs = copies(inp, (2 * q.numel() + 2 * k.numel() + out.numel()) * esz)
     run_k = lambda *x: fb.flash_attention_bwd(*x, **kw)
     run_p = lambda *x: fb.flash_attention_bwd_plain(*x, **kw)
-    if fb.route(q.dtype, q.shape[-1]) == "mma_sync":
-        # The current route is the previous design itself: nothing to compare.
-        ms, previous_ms = device_ms(run_k, inputs), None
-    else:
-        ms, previous_ms = in_turns(run_k, lambda *x: fb.previous_design(*x, **kw), inputs)
+    run_prev = lambda *x: fb.previous_design(*x, **kw)
+    ms, previous_ms = in_turns(run_k, run_prev, inputs)
+    split = {name: launch_split(torch, fn, inputs)
+             for name, fn in (("kernel", run_k), ("previous", run_prev))}
     eager_ms = time_ms(run_k, inputs)
     plain_ms = time_ms(run_p, inputs, iters=3, warmup=1)
     lib = []
@@ -2625,14 +2664,16 @@ def time_bwd(torch, label, inp, kw, n_pairs, report_err, sdpa_kw):
     nbytes = (4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4
     flops = 10 * h * d * n_pairs
     bound_ms, bound_by = bound(nbytes, flops)
-    previous = ("same kernel" if previous_ms is None else f"{previous_ms:.4f} ms (in turns)")
     log(f"{label}: kernel {ms:.4f} ms (eager calls {eager_ms:.4f}), previous design "
-        f"{previous}, plain {plain_ms:.4f} ms, SDPA backward "
+        f"{previous_ms:.4f} ms (in turns), plain {plain_ms:.4f} ms, SDPA backward "
         f"{library_ms:.4f} ms (eager), bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
         f"{flops} flops; computed as 14 D a pair: {flops * 1.4 / ms / 1e9:.1f} TFLOP/s)")
+    for name, parts in split.items():
+        log(f"  {name} launches (torch.profiler, eager): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in parts.items()))
     return dict(shape=label, max_abs_err=report_err, ms=ms, previous_ms=previous_ms,
                 eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, split=split)
 
 
 def backward_kernel_checks(torch, report):
@@ -2642,9 +2683,13 @@ def backward_kernel_checks(torch, report):
     (S = 448, S_kv = 1500), qwen2-vl-72b's (B = 8, S = 512, H = 64, KV = 8,
     D = 128) on the mrope phase's position ids, recurrentgemma-9b's local
     attention (B = 1, S = 4096, H = 16, KV = 1, D = 256, window 2048: the
-    bf16 D > 128 mma.sync route); each against its plain version,
-    deterministic, and timed beside SDPA's backward (an explicit mask for
-    positions and the window)."""
+    bf16 D > 128 wide route, its dK/dV split over the group's heads) and
+    gemma3-12b's layout (B = 1, S = 4096, H = 16, KV = 8, D = 256, window
+    1024: the wide route unsplit); each against its plain version,
+    deterministic, timed in turns with its previous design (the first
+    design's mma.sync kernels) and beside SDPA's backward (an explicit mask
+    for positions and the window), and each design's launches timed apart
+    with torch.profiler."""
     gen = torch.Generator(device="cuda").manual_seed(19)
     b, s = TRAIN_BATCH, TRAIN_SEQ
     granite = (b, s, s, 32, 8, 64, True)
@@ -2660,10 +2705,12 @@ def backward_kernel_checks(torch, report):
         ("qwen2-vl", (8, PREFILL_SEQ, PREFILL_SEQ, 64, 8, 128, True), qpos, None),
         ("recurrentgemma swa", (1, RGEMMA_TRAIN_SEQ, RGEMMA_TRAIN_SEQ, 16, 1, 256, True), None,
          None),
+        ("gemma3-12b swa", (1, GEMMA3_SEQ, GEMMA3_SEQ, 16, 8, 256, True), None, None),
     ]
+    windows = {"recurrentgemma swa": RGEMMA_WINDOW, "gemma3-12b swa": GEMMA3_WINDOW}
     records = []
     for label, shape, pos, sdpa_kw in cases:
-        window = RGEMMA_WINDOW if label.startswith("recurrentgemma") else None
+        window = windows.get(label)
         inp, kw, err = bwd_case(torch, gen, torch.bfloat16, *shape, pos=pos, window=window)
         bb, ss, skv, causal = shape[0], shape[1], shape[2], shape[6]
         if pos is not None:
@@ -2809,22 +2856,39 @@ def recurrence_backward_checks(torch, report):
     r, kk, v, w, u, do, _, _ = main
     base = (r, kk, v, w, u, do)
     inputs = copies(base, sum(t.numel() * t.element_size() for t in base))
-    ms = device_ms(lambda *x: wb.wkv6_bwd(*x), inputs)
+    run_k, run_prev = (lambda *x: wb.wkv6_bwd(*x)), (lambda *x: wb.previous_design(*x))
+    ms, previous_ms = in_turns(run_k, run_prev, inputs)
+    split = {name: launch_split(torch, fn, inputs)
+             for name, fn in (("kernel", run_k), ("previous", run_prev))}
     plain_ms = time_ms(lambda *x: wb.wkv6_bwd_plain(*x), inputs, iters=2, warmup=1)
     esz, h, k = r.element_size(), r.shape[2], r.shape[3]
     # r, k, v, do, w, u read; dr, dk, dv, dw, du written (V = K).
     nbytes = 7 * r.numel() * esz + 2 * w.numel() * 4 + 2 * u.numel() * esz
     flops = 12 * k * k * b * h * s
     bound_ms, bound_by = bound(nbytes, flops, "float32")
-    log(f"wkv6 bwd timed B={b} S={s} H={h} K=V={k} bf16/f32: kernel {ms:.4f} ms, plain "
+    log(f"wkv6 bwd timed B={b} S={s} H={h} K=V={k} bf16/f32: kernel ({wb.design(r.dtype)}) "
+        f"{ms:.4f} ms, previous design (sequential) {previous_ms:.4f} ms (in turns), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {flops} "
         f"fp32 flops; {flops / ms / 1e9:.2f} TFLOP/s); no single library call")
+    for name, parts in split.items():
+        log(f"  {name} launches (torch.profiler, eager): " + ", ".join(
+            f"{k_} {v_:.4f} ms" for k_, v_ in parts.items()))
+    # One sequence (B = 1): 32 (b, h) blocks for the sequential design, 512
+    # (chunk, h, b) for the chunked one.
+    one = tuple(t[:1].contiguous() if t.dim() == 4 else t for t in base)
+    one_in = copies(one, sum(t.numel() * t.element_size() for t in one))
+    b1_ms, b1_previous_ms = in_turns(run_k, run_prev, one_in)
+    b1_bound_ms = bound(nbytes // b, flops // b, "float32")[0]
+    log(f"wkv6 bwd timed B=1 S={s}: kernel {b1_ms:.4f} ms, previous design {b1_previous_ms:.4f} "
+        f"ms (in turns), bound {b1_bound_ms:.4f} ms")
     report["wkv6_bwd"] = dict(
         name="wkv6_bwd", route="cuda", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
         replaces="src/repro/kernels/wkv6.py:99", gradient_of="src/repro/models/recurrent.py:263",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, previous_ms=None, f32_max_abs_err=err_f32,
+        library_ms=None, previous_ms=previous_ms, f32_max_abs_err=err_f32, split=split,
+        b1_ms=b1_ms, b1_previous_ms=b1_previous_ms, b1_bound_ms=b1_bound_ms,
         shape=f"B={b} S={s} H={h} K=V={k} bf16 r/k/v/do, float32 w")
+    del one, one_in
     del main, base, inputs
     gc.collect()
     torch.cuda.empty_cache()
@@ -3233,15 +3297,17 @@ def main() -> int:
             counts = sass_counts(path)
             log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
             need = {"flash_attention": "HGMMA", "decode_attention": "HMMA",
-                    "wkv6": "HMMA", "flash_attention_bwd": "HGMMA"}.get(name)
+                    "wkv6": "HMMA", "flash_attention_bwd": "HGMMA",
+                    "wkv6_bwd": "HMMA"}.get(name)
             if need and counts[need] < 1:
                 raise AssertionError(f"{name}: no {need} in its SASS")
             if name == "flash_attention_bwd":
                 spills = wgmma_spills(text)
                 log(f"  wgmma kernels of {name}: {json.dumps(spills)}")
-                if not spills or any(spills.values()):
-                    raise AssertionError(f"{name}: a wgmma kernel spills (or none built): "
-                                         f"{spills}")
+                wide = [k for k in spills if "wide_wgmma" in k]
+                if not spills or any(spills.values()) or len(wide) != 4:
+                    raise AssertionError(f"{name}: a wgmma kernel spills (or the four wide "
+                                         f"ones are not all built): {spills}")
     with Phase("kernels"):
         phase_kernels(torch, report)
     with Phase("model"):

@@ -71,16 +71,47 @@
 //     and dS^T (32) a thread, with P^T and dS^T formed element by element
 //     so that S^T and dP^T die as they go; ptxas -v shows each kernel's
 //     registers and spills (chip_smoke.py fails on a spill).
-//   - bf16, D > 128 (gemma3, recurrentgemma at 256): the first design,
-//     `dkdv_kernel<bf16>` / `dq_kernel<bf16>`: one block per 64-key or
-//     64-query tile, mma.sync.m16n8k16 on fragments read from shared
-//     memory, plain 16-byte loads. dK + dV alone are 256 registers a
-//     thread at D = 256 in the wgmma layout.
-//   - float32: the same first design with register-blocked FMA products
-//     in mma.sync's fragment layout, nothing rounded (the reference's
-//     2e-5 tolerance rules out TF32).
+//   - bf16, 128 < D <= 256 (gemma3, recurrentgemma at 256): the wide
+//     route, `dkdv_wide_wgmma_kernel`, `dkdv_reduce_kernel` and
+//     `dq_wide_wgmma_kernel`, D zero-padded to 256. dK + dV are 256
+//     registers a thread at D = 256 in one warpgroup's wgmma layout, so
+//     a block holds two warpgroups, each owning 128 of the 256 columns of
+//     dK and dV (128 accumulator registers a thread).
+//       dK/dV: one block per (64 keys, kv head, b, part). Per step
+//       warpgroup 0 forms S^T = K Q^T and warpgroup 1 dP^T = V dO^T
+//       (wgmma_ss, 16 k-steps each, so each is formed once); warpgroup 1
+//       hands dP^T over through a float32 exchange tile in fragment
+//       order; warpgroup 0 forms P^T and dS^T (the softmax of section 4)
+//       and writes them, rounded to bf16, as two swizzled 64 x 64 tiles;
+//       then both run dV += P^T dO and dK += dS^T Q on their halves of D
+//       (wgmma_ss, A K-major from those tiles, B MN-major). K and V stay
+//       resident; Q, dO, LSE, Delta and the query positions of the next
+//       step come through a 2-stage cp.async ring. Shared memory: K, V
+//       64 KB, the ring 128 KB + 1.5 KB, P^T and dS^T 16 KB, the
+//       exchange 16 KB, 1 KB alignment: 231,936 of 232,448 bytes, one
+//       block an SM (eight warps).
+//       The grid fills the card: S_kv / 64 x KV x B blocks are too few at
+//       MQA (recurrentgemma-9b: 64 on 132 SMs), so each group's query
+//       heads are split into `parts` runs of consecutive heads, a
+//       function of the shape and the SM count alone
+//       (`ref.flash_bwd_head_parts`: the smallest divisor of the group
+//       that gives at least two blocks an SM; recurrentgemma 8, gemma3-12b
+//       1). With parts > 1 each block writes float32 partial dK and dV
+//       and `dkdv_reduce_kernel` sums them in order of part and rounds
+//       them: no atomics, two calls agree bit for bit.
+//       dQ: one block per (64 queries, head, b); warpgroup 0 forms S and
+//       the softmax, warpgroup 1 dP, handed over the same way; dS goes
+//       to shared memory as bf16 and both warpgroups run dQ += dS K on
+//       their halves (K read MN-major). K and V come through a 2-stage
+//       ring: 222,208 bytes of shared memory.
+//   - float32: the first design, `dkdv_kernel<float>` / `dq_kernel<float>`:
+//     one block per 64-key or 64-query tile, register-blocked FMA
+//     products in mma.sync's fragment layout, nothing rounded (the
+//     reference's 2e-5 tolerance rules out TF32).
 // `flash_attention_bwd_previous` runs the first design at every bf16 D
-// (and float32 as above), for side-by-side timing only.
+// (its bf16 instance: mma.sync.m16n8k16 on fragments read from shared
+// memory, plain 16-byte loads; D > 128 took it until the wide route) and
+// float32 as above, for side-by-side timing only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,6 +150,8 @@ struct Args {
   const int32_t *qpos, *kpos;        // (B, S), (B, S_kv) or both null = arange
   int B, S, Skv, H, KV, D, causal, window;
   float scale;
+  int parts;    // the wide route's split of each group's query heads (1: none)
+  float* part;  // (2, parts, B, S_kv, KV, D) float32 partial dK | dV when parts > 1
 };
 
 // Whether query qi (mask position qv) attends to key kj (position kv): the
@@ -594,8 +627,8 @@ __device__ __forceinline__ bool tile_full(int q_lo, int k_lo, const int32_t* qp,
 // (`row_pos`). Otherwise rows are queries: LSE (log2 units), Delta and
 // positions per row (`row_*`), key positions per column from global
 // memory (`kp`).
-template <bool kKeyRows, bool kMask, bool kPos>
-__device__ __forceinline__ void softmax_step(float (&s)[32], const float (&dp)[32],
+template <bool kKeyRows, bool kMask, bool kPos, typename DPT>
+__device__ __forceinline__ void softmax_step(float (&s)[32], const DPT& dp,
                                              uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
                                              const float* col_lse, const float* col_delta,
                                              const int* col_pos, const int32_t* kp,
@@ -641,8 +674,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], const float (&dp)[3
 }
 
 // `softmax_step`, with the element mask left out on a full tile.
-template <bool kKeyRows, bool kPos>
-__device__ __forceinline__ void softmax_any(bool full, float (&s)[32], const float (&dp)[32],
+template <bool kKeyRows, bool kPos, typename DPT>
+__device__ __forceinline__ void softmax_any(bool full, float (&s)[32], const DPT& dp,
                                             uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
                                             const float* col_lse, const float* col_delta,
                                             const int* col_pos, const int32_t* kp,
@@ -929,6 +962,402 @@ __global__ void __launch_bounds__(kWgThreads, 2) dq_wgmma_kernel(Args a, float s
 }
 
 // ---------------------------------------------------------------------------
+// 5. bf16, 128 < D <= 256: the wide route (see the header). Two warpgroups
+//    a block, the same fragment rule as section 4 in each.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideThreads = 256;         // two warpgroups
+constexpr int kXBytes = 64 * 64 * 4;      // one 64 x 64 float32 tile, fragment order
+
+// d += A (64 x 16, shared memory, K-major) B (16 x 64, shared memory,
+// MN-major: its rows are the reduction).
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The other warpgroup's accumulator, read from the exchange tile in
+// fragment order: element e of thread t at e * 128 + t.
+struct Strided {
+  const float* p;
+  __device__ __forceinline__ float operator[](int e) const { return p[e * 128]; }
+};
+
+// A 64 x 64 tile of packed bf16 A fragments (rows 16 warp + lane / 4 + 8 r,
+// columns 16 kk + 8 (q / 2) + 2 (lane % 4)) into one swizzled block, where
+// wgmma_ss reads it K-major.
+__device__ __forceinline__ void store_frag_tile(uint8_t* tile, const uint32_t (&f)[4][4],
+                                                int warp, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = 2 * kk + (q >> 1);
+      const int row = 16 * warp + (lane >> 2) + 8 * (q & 1);
+      *reinterpret_cast<uint32_t*>(tile + row * 128 + ((n ^ (row & 7)) << 4) + 4 * (lane & 3)) =
+          f[kk][q];
+    }
+}
+
+// acc (64 x 64 per 64-column block c of this warpgroup's half of D) +=
+// A B: A one 64 x 64 swizzled block (K-major), B a 64 x DP tile read
+// MN-major.
+template <int DP>
+__device__ __forceinline__ void tile_ab_half(float (&acc)[2][32], uint32_t a_tile,
+                                             uint32_t b_tile, int wg) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_tb(acc[c], smem_desc(a_tile + kk * 32, 16, 1024),
+                  smem_desc(b_tile + (2 * wg + c) * kBlockBytes + kk * 2048, 1024, 1024));
+}
+
+template <int DP>
+constexpr size_t dkdv_wide_smem() {
+  // K | V | two stages of Q and of dO | P^T | dS^T | the dP^T exchange |
+  // two stages of (LSE | Delta | positions) | alignment
+  return 6 * (size_t)(DP / 64) * kBlockBytes + 2 * kBlockBytes + kXBytes + 2 * 3 * kStatBytes +
+         1024;
+}
+
+// dK and dV of 64 keys of one kv head and batch row, summed over one part
+// of the group's query heads: blockIdx.x = kv head * parts + part.
+template <int DP, bool kPos>
+__global__ void __launch_bounds__(kWideThreads, 1) dkdv_wide_wgmma_kernel(Args a,
+                                                                          float scale_log2) {
+  constexpr int kT = (DP / 64) * kBlockBytes;  // one 64 x DP tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gen = smem_raw + (base - raw);  // generic address of `base`
+  const uint32_t sK = base;
+  const uint32_t sV = base + kT;
+  const uint32_t sQ = base + 2 * kT;   // two stages
+  const uint32_t sdO = base + 4 * kT;  // two stages
+  const uint32_t sP = base + 6 * kT;
+  const uint32_t sdS = sP + kBlockBytes;
+  float* xch = reinterpret_cast<float*>(gen + 6 * kT + 2 * kBlockBytes);
+  const uint32_t sStat = sdS + kBlockBytes + kXBytes;
+  const float* stat = reinterpret_cast<const float*>(gen + (sStat - base));
+
+  const int kh = blockIdx.x / a.parts;
+  const int part = blockIdx.x - kh * a.parts;
+  const int b = blockIdx.y;
+  const int k_lo = blockIdx.z * 64;  // the first keys start first
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;  // 0: S^T and the softmax; 1: dP^T
+  const int t = tid & 127;
+  const int warp = t >> 5;
+  const int lane = tid & 31;
+  const int group = a.H / a.KV;
+  const int per = group / a.parts;  // query heads of this part
+  const int h0 = kh * group + part * per;
+  const size_t qrow = (size_t)a.H * a.D;
+  const size_t krow = (size_t)a.KV * a.D;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const int32_t* qp = kPos ? a.qpos + (size_t)b * a.S : nullptr;
+  const int32_t* kp = kPos ? a.kpos + (size_t)b * a.Skv : nullptr;
+
+  const int n_q = (a.S + 63) / 64;
+  int t_lo = n_q, t_hi = -1;
+  for (int x = 0; x < n_q; ++x)
+    if (tile_live(64 * x, k_lo, qp, kp, a)) {
+      t_lo = min(t_lo, x);
+      t_hi = x;
+    }
+  const int n_t = max(t_hi - t_lo + 1, 0);
+  const int n_steps = per * n_t;
+
+  auto load_step = [&](int i, int stage) {
+    const int h = h0 + i / n_t;
+    const int q_lo = 64 * (t_lo + i % n_t);
+    const size_t at = ((size_t)b * a.S + q_lo) * qrow + (size_t)h * a.D;
+    load_tile<DP, kWideThreads>(sQ + stage * kT, q + at, qrow, a.S - q_lo, a.D, tid);
+    load_tile<DP, kWideThreads>(sdO + stage * kT, dout + at, qrow, a.S - q_lo, a.D, tid);
+    for (int x = tid; x < (kPos ? 192 : 128); x += kWideThreads) {
+      const int which = x >> 6;
+      const int j = x & 63;
+      const bool ok = q_lo + j < a.S;
+      const size_t row = ((size_t)b * a.H + h) * a.S + q_lo + j;
+      const void* src = which == 0 ? static_cast<const void*>(a.lse + row)
+                      : which == 1 ? static_cast<const void*>(a.delta + row)
+                                   : static_cast<const void*>(qp + q_lo + j);
+      cp_async4(sStat + (stage * 3 + which) * kStatBytes + 4 * j, ok ? src : a.lse, ok);
+    }
+  };
+
+  const size_t kv_at = ((size_t)b * a.Skv + k_lo) * krow + (size_t)kh * a.D;
+  load_tile<DP, kWideThreads>(sK, static_cast<const bf16*>(a.k) + kv_at, krow, a.Skv - k_lo,
+                              a.D, tid);
+  load_tile<DP, kWideThreads>(sV, static_cast<const bf16*>(a.v) + kv_at, krow, a.Skv - k_lo,
+                              a.D, tid);
+  if (n_steps > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float dk[2][32], dv[2][32];  // this warpgroup's half of D
+  zero_acc(dk);
+  zero_acc(dv);
+  const int row0 = k_lo + warp * 16 + (lane >> 2);  // this thread's keys: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+  int kv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kv[i] = kPos ? kp[min(row0 + 8 * i, a.Skv - 1)] : row0 + 8 * i;
+  const float none[2] = {0.f, 0.f};
+
+  int st = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait_all();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // step i's stage landed; step i - 1 is done with everything
+    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);
+    cp_async_commit();
+
+    const int q_lo = 64 * (t_lo + i % n_t);
+    if (tile_live(q_lo, k_lo, qp, kp, a)) {
+      const uint32_t qst = sQ + st * kT;
+      const uint32_t dost = sdO + st * kT;
+      // S^T = K Q^T (warpgroup 0) and dP^T = V dO^T (warpgroup 1), once each.
+      float acc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      fence_regs(acc);
+      wgmma_fence();
+      if (wg == 0)
+        tile_qk<DP>(acc, sK, qst);
+      else
+        tile_qk<DP>(acc, sV, dost);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      if (wg == 1)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) xch[e * 128 + t] = acc[e];
+      __syncthreads();  // dP^T is in the exchange tile
+      if (wg == 0) {
+        // P^T and dS^T, rows keys, each rounded to bf16 into shared memory.
+        const float* lse_s = stat + st * 3 * 64;
+        uint32_t pa[4][4], da[4][4];
+        softmax_any<true, kPos>(tile_full(q_lo, k_lo, qp, kp, a), acc, Strided{xch + t}, pa, da,
+                                lse_s, lse_s + 64, reinterpret_cast<const int*>(lse_s + 128), kp,
+                                none, none, kv, row0, q_lo, col0, scale_log2, a);
+        store_frag_tile(gen + (sP - base), pa, warp, lane);
+        store_frag_tile(gen + (sdS - base), da, warp, lane);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+      __syncthreads();  // P^T and dS^T are in shared memory
+      // dV += P^T dO and dK += dS^T Q on this warpgroup's 128 columns.
+      fence_acc(dv);
+      fence_acc(dk);
+      wgmma_fence();
+      tile_ab_half<DP>(dv, sP, dost, wg);
+      tile_ab_half<DP>(dk, sdS, qst, wg);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(dv);
+      fence_acc(dk);
+    }
+    st ^= 1;
+  }
+  cp_async_wait_all();
+
+  const size_t n_out = (size_t)a.B * a.Skv * krow;  // one part's dK (or dV)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = row0 + 8 * r;
+    if (kj >= a.Skv) continue;
+    const size_t at = ((size_t)b * a.Skv + kj) * krow + (size_t)kh * a.D;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int d = 64 * (2 * wg + c) + 8 * n + col0;
+        if (d >= a.D) continue;
+        const int e = 4 * n + 2 * r;
+        if (a.parts == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dk) + at + d) =
+              __floats2bfloat162_rn(dk[c][e] * a.scale, dk[c][e + 1] * a.scale);
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dv) + at + d) =
+              __floats2bfloat162_rn(dv[c][e], dv[c][e + 1]);
+        } else {
+          float* pk = a.part + (size_t)part * n_out + at + d;
+          *reinterpret_cast<float2*>(pk) = make_float2(dk[c][e], dk[c][e + 1]);
+          *reinterpret_cast<float2*>(pk + (size_t)a.parts * n_out) =
+              make_float2(dv[c][e], dv[c][e + 1]);
+        }
+      }
+  }
+}
+
+// dK = scale * (the parts' partial dK summed in order of part), dV the same
+// unscaled, each rounded to bf16 once.
+__global__ void dkdv_reduce_kernel(Args a) {
+  const size_t n = (size_t)a.B * a.Skv * a.KV * a.D;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float sk = 0.f, sv = 0.f;
+  for (int p = 0; p < a.parts; ++p) {
+    sk += a.part[(size_t)p * n + e];
+    sv += a.part[(size_t)(a.parts + p) * n + e];
+  }
+  static_cast<bf16*>(a.dk)[e] = __float2bfloat16(sk * a.scale);
+  static_cast<bf16*>(a.dv)[e] = __float2bfloat16(sv);
+}
+
+template <int DP>
+constexpr size_t dq_wide_smem() {
+  // Q | dO | two stages of K and of V | dS | the dP exchange | alignment
+  return 6 * (size_t)(DP / 64) * kBlockBytes + kBlockBytes + kXBytes + 1024;
+}
+
+// dQ of 64 queries of one head and batch row; rows = queries.
+template <int DP, bool kPos>
+__global__ void __launch_bounds__(kWideThreads, 1) dq_wide_wgmma_kernel(Args a,
+                                                                        float scale_log2) {
+  constexpr int kT = (DP / 64) * kBlockBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gen = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sdO = base + kT;
+  const uint32_t sK = base + 2 * kT;  // two stages
+  const uint32_t sV = base + 4 * kT;  // two stages
+  const uint32_t sdS = base + 6 * kT;
+  float* xch = reinterpret_cast<float*>(gen + 6 * kT + kBlockBytes);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q_lo = (gridDim.z - 1 - blockIdx.z) * 64;  // late queries first
+  const int kh = h / (a.H / a.KV);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;  // 0: S and the softmax; 1: dP
+  const int t = tid & 127;
+  const int warp = t >> 5;
+  const int lane = tid & 31;
+  const size_t qrow = (size_t)a.H * a.D;
+  const size_t krow = (size_t)a.KV * a.D;
+  const bf16* kb = static_cast<const bf16*>(a.k) + (size_t)b * a.Skv * krow + (size_t)kh * a.D;
+  const bf16* vb = static_cast<const bf16*>(a.v) + (size_t)b * a.Skv * krow + (size_t)kh * a.D;
+  const int32_t* qp = kPos ? a.qpos + (size_t)b * a.S : nullptr;
+  const int32_t* kp = kPos ? a.kpos + (size_t)b * a.Skv : nullptr;
+
+  const int n_kv = (a.Skv + 63) / 64;
+  int kt_lo = n_kv, kt_hi = -1;
+  for (int x = 0; x < n_kv; ++x)
+    if (tile_live(q_lo, 64 * x, qp, kp, a)) {
+      kt_lo = min(kt_lo, x);
+      kt_hi = x;
+    }
+  const int n_steps = max(kt_hi - kt_lo + 1, 0);
+  auto load_step = [&](int i, int stage) {
+    const int k_lo = (kt_lo + i) * 64;
+    load_tile<DP, kWideThreads>(sK + stage * kT, kb + (size_t)k_lo * krow, krow, a.Skv - k_lo,
+                                a.D, tid);
+    load_tile<DP, kWideThreads>(sV + stage * kT, vb + (size_t)k_lo * krow, krow, a.Skv - k_lo,
+                                a.D, tid);
+  };
+
+  const size_t q_at = ((size_t)b * a.S + q_lo) * qrow + (size_t)h * a.D;
+  load_tile<DP, kWideThreads>(sQ, static_cast<const bf16*>(a.q) + q_at, qrow, a.S - q_lo, a.D,
+                              tid);
+  load_tile<DP, kWideThreads>(sdO, static_cast<const bf16*>(a.dout) + q_at, qrow, a.S - q_lo,
+                              a.D, tid);
+  if (n_steps > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float dq[2][32];
+  zero_acc(dq);
+  const int row0 = q_lo + warp * 16 + (lane >> 2);  // this thread's queries: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+  float l2[2], dl[2];
+  int qv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    const size_t at = ((size_t)b * a.H + h) * a.S + qi;
+    l2[r] = qi < a.S ? a.lse[at] * kLog2e : 0.f;
+    dl[r] = qi < a.S ? a.delta[at] : 0.f;
+    qv[r] = kPos ? qp[min(qi, a.S - 1)] : qi;
+  }
+
+  int st = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait_all();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (i + 1 < n_steps) load_step(i + 1, st ^ 1);
+    cp_async_commit();
+
+    const int k_lo = (kt_lo + i) * 64;
+    if (tile_live(q_lo, k_lo, qp, kp, a)) {
+      const uint32_t kst = sK + st * kT;
+      // S = Q K^T (warpgroup 0) and dP = dO V^T (warpgroup 1).
+      float acc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      fence_regs(acc);
+      wgmma_fence();
+      if (wg == 0)
+        tile_qk<DP>(acc, sQ, kst);
+      else
+        tile_qk<DP>(acc, sdO, sV + st * kT);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      if (wg == 1)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) xch[e * 128 + t] = acc[e];
+      __syncthreads();
+      if (wg == 0) {
+        uint32_t pa[4][4], da[4][4];  // pa: P as bf16, not multiplied here
+        softmax_any<false, kPos>(tile_full(q_lo, k_lo, qp, kp, a), acc, Strided{xch + t}, pa,
+                                 da, nullptr, nullptr, nullptr, kp, l2, dl, qv, row0, k_lo, col0,
+                                 scale_log2, a);
+        store_frag_tile(gen + (sdS - base), da, warp, lane);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+      __syncthreads();
+      // dQ += dS K on this warpgroup's 128 columns, K read MN-major.
+      fence_acc(dq);
+      wgmma_fence();
+      tile_ab_half<DP>(dq, sdS, kst, wg);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(dq);
+    }
+    st ^= 1;
+  }
+  cp_async_wait_all();
+
+  bf16* dq_out = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= a.S) continue;
+    bf16* orow = dq_out + ((size_t)b * a.S + qi) * qrow + (size_t)h * a.D;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int d = 64 * (2 * wg + c) + 8 * n + col0;
+        const int e = 4 * n + 2 * r;
+        if (d < a.D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+              __floats2bfloat162_rn(dq[c][e] * a.scale, dq[c][e + 1] * a.scale);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -987,6 +1416,35 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The wide route: bf16, 128 < D <= 256.
+template <int DP, bool kPos>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  cudaError_t err = (cudaError_t)launch_delta<bf16>(a, stream);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = a.scale * kLog2e;
+  constexpr size_t smem_kv = dkdv_wide_smem<DP>();
+  err = cudaFuncSetAttribute(dkdv_wide_wgmma_kernel<DP, kPos>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  dkdv_wide_wgmma_kernel<DP, kPos><<<dim3(a.KV * a.parts, a.B, (a.Skv + 63) / 64), kWideThreads,
+                                     smem_kv, stream>>>(a, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (a.parts > 1) {
+    const size_t n = (size_t)a.B * a.Skv * a.KV * a.D;
+    dkdv_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  constexpr size_t smem_q = dq_wide_smem<DP>();
+  err = cudaFuncSetAttribute(dq_wide_wgmma_kernel<DP, kPos>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (err != cudaSuccess) return (int)err;
+  dq_wide_wgmma_kernel<DP, kPos><<<dim3(a.H, a.B, (a.S + 63) / 64), kWideThreads, smem_q,
+                                   stream>>>(a, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 // The forward's argument rules (S_kv != S only without a causal mask or
 // window; positions in pairs).
 bool bad_shape(const Args& a) {
@@ -996,23 +1454,30 @@ bool bad_shape(const Args& a) {
 }
 
 // The route of (dtype, D): 0 = float32 FMA (first design; D <= 128, its
-// shared memory), 1 = bf16 mma.sync (first design), 2 = bf16 wgmma; -1 =
-// refused.
+// shared memory), 2 = bf16 wgmma (D <= 128), 3 = bf16 wide wgmma (D in
+// (128, 256]); -1 = refused. (1, the first design's bf16 mma.sync, is no
+// route any more: only `flash_attention_bwd_previous` runs it.)
 int route(int dtype, int D) {
   if (D % 8 != 0 || D < 8) return -1;
   if (dtype == 0) return D <= 128 ? 0 : -1;
   if (dtype != 1 || D > 256) return -1;
-  return D <= 128 ? 2 : 1;
+  return D <= 128 ? 2 : 3;
 }
 
 int run(const Args& a, int dtype, bool previous, cudaStream_t st) {
   const int r = route(dtype, a.D);
   if (bad_shape(a) || r < 0) return (int)cudaErrorInvalidValue;
   if (r == 0) return a.D <= 64 ? launch_first<float, 64>(a, st) : launch_first<float, 128>(a, st);
+  const bool pos = a.qpos != nullptr;
   if (r == 2 && !previous) {
-    const bool pos = a.qpos != nullptr;
     if (a.D <= 64) return pos ? launch_wgmma<64, true>(a, st) : launch_wgmma<64, false>(a, st);
     return pos ? launch_wgmma<128, true>(a, st) : launch_wgmma<128, false>(a, st);
+  }
+  if (r == 3 && !previous) {
+    const int group = a.H / a.KV;
+    if (a.parts < 1 || group % a.parts != 0 || (a.parts > 1 && a.part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    return pos ? launch_wide<256, true>(a, st) : launch_wide<256, false>(a, st);
   }
   if (a.D <= 64) return launch_first<bf16, 64>(a, st);
   if (a.D <= 128) return launch_first<bf16, 128>(a, st);
@@ -1022,10 +1487,10 @@ int run(const Args& a, int dtype, bool previous, cudaStream_t st) {
 Args make_args(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const void* lse, void* delta, void* dq, void* dk, void* dv, const void* qpos,
                const void* kpos, int B, int S, int Skv, int H, int KV, int D, int causal,
-               int window, float scale) {
+               int window, float scale, int parts, void* part) {
   return Args{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
               dq, dk, dv, static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(kpos),
-              B, S, Skv, H, KV, D, causal, window, scale};
+              B, S, Skv, H, KV, D, causal, window, scale, parts, static_cast<float*>(part)};
 }
 
 }  // namespace
@@ -1035,31 +1500,38 @@ Args make_args(const void* q, const void* k, const void* v, const void* o, const
 // contiguous in dtype. lse: the forward's float32 (B, H, S); delta:
 // float32 (B, H, S) scratch. qpos / kpos: int32 (B, S) / (B, S_kv) mask
 // positions, or both null for arange. causal 0/1; window <= 0 means none.
-// Three launches (Delta, dK/dV, dQ) on `stream`; returns the first failing
-// launch's cudaError (0 on success).
+// parts: on the wide route, how many parts each group of H / KV query
+// heads is split into for dK/dV (a divisor of the group; 1 elsewhere);
+// part: float32 scratch of 2 parts B S_kv KV D when parts > 1, else null.
+// Three launches (Delta, dK/dV, dQ) on `stream`, four with parts > 1 (the
+// partials' sum after dK/dV); returns the first failing launch's
+// cudaError (0 on success).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv, const void* qpos,
                                    const void* kpos, int B, int S, int Skv, int H, int KV,
-                                   int D, int causal, int window, float scale, void* stream) {
+                                   int D, int causal, int window, float scale, int parts,
+                                   void* part, void* stream) {
   return run(make_args(q, k, v, o, dout, lse, delta, dq, dk, dv, qpos, kpos, B, S, Skv, H, KV,
-                       D, causal, window, scale),
+                       D, causal, window, scale, parts, part),
              dtype, false, static_cast<cudaStream_t>(stream));
 }
 
 // The first design (mma.sync for bf16 at every D, FMA for float32), kept
-// for side-by-side timing only. Same arguments as flash_attention_bwd.
+// for side-by-side timing only. Same arguments as flash_attention_bwd
+// (parts and part are not read).
 extern "C" int flash_attention_bwd_previous(int dtype, const void* q, const void* k,
                                             const void* v, const void* o, const void* dout,
                                             const void* lse, void* delta, void* dq, void* dk,
                                             void* dv, const void* qpos, const void* kpos, int B,
                                             int S, int Skv, int H, int KV, int D, int causal,
-                                            int window, float scale, void* stream) {
+                                            int window, float scale, int parts, void* part,
+                                            void* stream) {
   return run(make_args(q, k, v, o, dout, lse, delta, dq, dk, dv, qpos, kpos, B, S, Skv, H, KV,
-                       D, causal, window, scale),
+                       D, causal, window, scale, 1, nullptr),
              dtype, true, static_cast<cudaStream_t>(stream));
 }
 
 // The route flash_attention_bwd takes for (dtype, D): 0 = float32 FMA,
-// 1 = bf16 mma.sync (first design), 2 = bf16 wgmma, -1 = refused.
+// 2 = bf16 wgmma, 3 = bf16 wide wgmma, -1 = refused.
 extern "C" int flash_attention_bwd_route(int dtype, int D) { return route(dtype, D); }

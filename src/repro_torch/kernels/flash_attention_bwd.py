@@ -10,9 +10,13 @@ dK/dV, dQ). ``flash_attention.FlashAttentionFn`` calls it; nothing else on
 a model's path does.
 
 Routes, a rule by dtype and head dim (``route``), never a fallback:
-bfloat16 with D <= 128 runs the wgmma kernels; bfloat16 with D > 128 the
-first design's ``mma.sync`` kernels; float32 (D <= 128) the first
-design's FMA kernels. ``previous_design`` runs the first design at every
+bfloat16 with D <= 128 runs the wgmma kernels; bfloat16 with 128 < D <=
+256 the wide wgmma kernels (two warpgroups a block, each on half of D;
+the dK/dV sum over each group's query heads split into
+``ref.flash_bwd_head_parts`` parts when the keys alone give too few
+blocks for the card, the float32 partials summed in order by a fourth
+launch); float32 (D <= 128) the first design's FMA kernels.
+``previous_design`` runs the first design (``mma.sync``) at every
 bfloat16 D, for side-by-side timing only.
 """
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import _check
-from repro_torch.kernels.ref import check_flash_masks, flash_attention_bwd_plain
+from repro_torch.kernels.ref import (check_flash_masks, flash_attention_bwd_plain,
+                                     flash_bwd_head_parts)
 
 NAME = "flash_attention_bwd"
 SYMBOL = "flash_attention_bwd"
@@ -33,13 +38,13 @@ SYMBOL = "flash_attention_bwd"
 # side-by-side timing; only ``previous_design`` calls it.
 PREVIOUS_SYMBOL = "flash_attention_bwd_previous"
 ROUTE_SYMBOL = "flash_attention_bwd_route"
-ROUTES = {0: "fma", 1: "mma_sync", 2: "wgmma"}
+ROUTES = {0: "fma", 2: "wgmma", 3: "wgmma_wide"}
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
-    + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 )
 
 
@@ -53,7 +58,7 @@ def _fn(symbol: str = SYMBOL):
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernels a call with this dtype and head dim runs, by the rule
-    above: "wgmma", "mma_sync" or "fma"; raises for what no route takes
+    above: "wgmma", "wgmma_wide" or "fma"; raises for what no route takes
     (head dims are multiples of 8, up to 256 in bfloat16 and 128 in
     float32, the first design's shared memory)."""
     if d % 8 or d < 8 or dtype not in _DTYPES or d > (128 if dtype == torch.float32 else 256):
@@ -61,7 +66,7 @@ def route(dtype: torch.dtype, d: int) -> str:
                          "multiples of 8 up to 256 (128 in float32)")
     if dtype == torch.float32:
         return "fma"
-    return "wgmma" if d <= 128 else "mma_sync"
+    return "wgmma" if d <= 128 else "wgmma_wide"
 
 
 def kernel_route(dtype: torch.dtype, d: int) -> str:
@@ -105,6 +110,17 @@ def previous_design(q, k, v, o, do, lse, *, causal=True, window=None, q_pos=None
     return _launch(PREVIOUS_SYMBOL, q, k, v, o, do, lse, causal, window, q_pos, kv_pos)
 
 
+def head_parts(b: int, skv: int, h: int, kv: int, d: int, dtype: torch.dtype,
+               device: torch.device) -> int:
+    """How many parts the wide route splits each group's query heads into
+    for dK/dV on ``device`` (``ref.flash_bwd_head_parts`` at its SM count);
+    1 on every other route."""
+    if route(dtype, d) != "wgmma_wide":
+        return 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return flash_bwd_head_parts(b, skv, kv, h // kv, sms)
+
+
 def _launch(symbol, q, k, v, o, do, lse, causal, window, q_pos, kv_pos):
     """Check the arguments and run one call of the C entry point ``symbol``."""
     if q.device.type != "cuda":
@@ -135,18 +151,22 @@ def _launch(symbol, q, k, v, o, do, lse, causal, window, q_pos, kv_pos):
         _check("kv_pos", kv_pos, (b, skv), torch.int32, dev)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    parts = head_parts(b, skv, h, kv, d, q.dtype, dev) if symbol == SYMBOL else 1
+    part = (torch.empty(2 * parts * k.numel(), dtype=torch.float32, device=dev) if parts > 1
+            else None)
     err = _fn(symbol)(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), q_pos.data_ptr() if use_pos else None,
         kv_pos.data_ptr() if use_pos else None,
         b, s, skv, h, kv, d, int(bool(causal)), 0 if window is None else int(window),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
+        1.0 / math.sqrt(d), parts, None if part is None else part.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
     return dq, dk, dv
 
 
-__all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "launches", "previous_design",
-           "route"]
+__all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "head_parts", "launches",
+           "previous_design", "route"]

@@ -12,8 +12,9 @@ float32.
 forward writes for its backward, and ``flash_attention_bwd_plain`` is
 the backward kernel's FlashAttention-2 recurrences written out (not
 autograd); ``flash_attention_bwd_tiled_plain`` is the plain twin of the
-backward's wgmma route, walking its 64 x 64 tiles in its order (the
-tiles ``flash_bwd_walks`` keeps). ``rglru_bwd_plain`` and
+backward's wgmma routes, walking their 64 x 64 tiles in their order (the
+tiles ``flash_bwd_walks`` keeps, the wide route's parts of each group's
+query heads from ``flash_bwd_head_parts``). ``rglru_bwd_plain`` and
 ``wkv6_bwd_plain`` are the two recurrences' backward kernels written out
 (reverse-time recurrences, not autograd). float64 inputs keep float64 in
 the flash functions and in both recurrences forward and backward, so the
@@ -220,6 +221,33 @@ def flash_bwd_walks(s: int, skv: int, causal: bool, window, qp=None, kp=None):
     return dkdv, dq
 
 
+def flash_bwd_head_parts(b: int, skv: int, kv: int, group: int, sms: int) -> int:
+    """How many parts the wide route (bf16, 128 < D <= 256) splits each kv
+    head's group of query heads into for dK/dV: the smallest divisor of
+    ``group`` that gives at least two blocks an SM, ``ceil(S_kv / 64) KV B``
+    blocks a part (all ``group`` parts when none does). A function of the
+    shape and the SM count alone."""
+    blocks = -(-skv // BWD_TILE) * kv * b
+    for p in range(1, group + 1):
+        if group % p == 0 and blocks * p >= 2 * sms:
+            return p
+    return group
+
+
+def flash_bwd_dkdv_steps(s: int, skv: int, h: int, kv: int, parts: int, causal: bool, window,
+                         qp=None, kp=None):
+    """The dK/dV blocks' steps for one batch row: {(key tile, kv head,
+    part): [(query head, query tile), ...] in walk order}. A part takes
+    ``h / kv / parts`` consecutive query heads of its kv head's group and
+    walks each head's run of ``flash_bwd_walks`` in turn."""
+    g = h // kv
+    per = g // parts
+    kv_walks, _ = flash_bwd_walks(s, skv, causal, window, qp, kp)
+    return {(kt, kh, p): [(hq, qt) for hq in range(kh * g + p * per, kh * g + (p + 1) * per)
+                          for qt in q_tiles]
+            for kt, q_tiles in enumerate(kv_walks) for kh in range(kv) for p in range(parts)}
+
+
 def flash_attention_bwd_tiled_plain(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, S_kv, KV, D)
@@ -232,18 +260,22 @@ def flash_attention_bwd_tiled_plain(
     window: Optional[int] = None,
     q_pos: Optional[torch.Tensor] = None,
     kv_pos: Optional[torch.Tensor] = None,
+    parts: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dQ, dK, dV) as the backward's wgmma route computes them
+    """(dQ, dK, dV) as the backward's wgmma routes compute them
     (``csrc/flash_attention_bwd.cu``'s ``dkdv_wgmma_kernel`` and
-    ``dq_wgmma_kernel``), tile by tile in their order: dK and dV of each
-    64-key tile summed over the group's heads in turn and, per head, over
-    the query tiles of ``flash_bwd_walks``; dQ of each 64-query tile over
-    its kv tiles. Each step recomputes S, P = exp(S scale - LSE) under the
-    element mask, dP and dS = P (dP - Delta) on its tile; on bfloat16
-    inputs P and dS are rounded to bfloat16 before they are multiplied,
-    as the kernel's tensor-core operands are. Same function as
-    ``flash_attention_bwd_plain``; only the order of the float32 sums
-    differs."""
+    ``dq_wgmma_kernel``; with ``parts`` the wide route's
+    ``dkdv_wide_wgmma_kernel``, ``dkdv_reduce_kernel`` and
+    ``dq_wide_wgmma_kernel``), tile by tile in their order: dK and dV of
+    each 64-key tile summed, per part, over its run of the group's heads
+    in turn (``flash_bwd_dkdv_steps``) and, per head, over the query tiles
+    of ``flash_bwd_walks``, then the parts' float32 sums added in order of
+    part; dQ of each 64-query tile over its kv tiles. Each step recomputes
+    S, P = exp(S scale - LSE) under the element mask, dP and dS = P (dP -
+    Delta) on its tile; on bfloat16 inputs P and dS are rounded to
+    bfloat16 before they are multiplied, as the kernel's tensor-core
+    operands are. Same function as ``flash_attention_bwd_plain``; only the
+    order of the float32 sums differs."""
     b, s, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -278,13 +310,24 @@ def flash_attention_bwd_tiled_plain(
             ds = p * (dp - delta[bi, qs, hq][:, None])
             return qs, ks, rnd(p), rnd(ds)
 
-        for kt, q_tiles in enumerate(kv_walks):
+        dkdv_steps = flash_bwd_dkdv_steps(s, skv, h, kv, parts, causal, window,
+                                          qp if use_pos else None, kp if use_pos else None)
+        for kt in range(len(kv_walks)):
+            ks = slice(t * kt, min(t * kt + t, skv))
             for kh in range(kv):
-                for hq in range(kh * g, (kh + 1) * g):
-                    for qt in q_tiles:
-                        qs, ks, p, ds = step(qt, kt, hq)
-                        dv[bi, ks, kh] += p.T @ dof[bi, qs, hq]
-                        dk[bi, ks, kh] += ds.T @ qf[bi, qs, hq]
+                part_k, part_v = [], []
+                for p_i in range(parts):
+                    acc_k = torch.zeros_like(dk[bi, ks, kh])
+                    acc_v = torch.zeros_like(dv[bi, ks, kh])
+                    for hq, qt in dkdv_steps[(kt, kh, p_i)]:
+                        qs, _, p, ds = step(qt, kt, hq)
+                        acc_v += p.T @ dof[bi, qs, hq]
+                        acc_k += ds.T @ qf[bi, qs, hq]
+                    part_k.append(acc_k)
+                    part_v.append(acc_v)
+                for acc_k, acc_v in zip(part_k, part_v):  # in order of part
+                    dk[bi, ks, kh] += acc_k
+                    dv[bi, ks, kh] += acc_v
         for qt, k_tiles in enumerate(q_walks):
             for hq in range(h):
                 for kt in k_tiles:
@@ -575,10 +618,19 @@ def wkv6_chunked_plain(
     this is the exact chunked form. Returns (o in r's dtype, last state in
     float32)."""
     od = r.dtype if operand_dtype is None else operand_dtype
+    o, x, _ = _wkv6_chunks(r, k, v, w, u, state, chunk, half, od, torch.float32)
+    return o[:, :, : r.shape[1]].permute(0, 2, 1, 3).to(r.dtype), x
+
+
+def _wkv6_chunks(r, k, v, w, u, state, chunk, half, od, acc):
+    """``wkv6_chunked_plain``'s arithmetic in ``acc`` (float32, or float64
+    for float64 inputs), operands split in ``od``. Returns (o as (B, H,
+    n chunk, V), the last state, the states entering the chunks as (B, H,
+    n, K, V), unrounded)."""
 
     def rnd(x):
-        hi = x.to(od).float()
-        return hi + (x - hi).to(od).float()
+        hi = x.to(od).to(acc)
+        return hi + (x - hi).to(od).to(acc)
 
     b, s, h, dk = r.shape
     dv = v.shape[-1]
@@ -586,14 +638,14 @@ def wkv6_chunked_plain(
     nh = chunk // half
     pad = n * chunk - s
 
-    def blocks(x, fill):  # (B, S, H, D) -> (B, H, n, nh, half, D), float32
-        x = x.float()
+    def blocks(x, fill):  # (B, S, H, D) -> (B, H, n, nh, half, D) in acc
+        x = x.to(acc)
         if pad:
             x = torch.cat([x, x.new_full((b, pad) + x.shape[2:], fill)], dim=1)
         return x.reshape(b, n, nh, half, h, x.shape[-1]).permute(0, 4, 1, 2, 3, 5)
 
     rr, kk, vv, ww = blocks(r, 0.0), blocks(k, 0.0), blocks(v, 0.0), blocks(w, 1.0)
-    uf = u.float()[None, :, None, None, :]
+    uf = u.to(acc)[None, :, None, None, :]
     a = torch.clamp(torch.log(ww), min=WKV_LOG_CLAMP)
     L = torch.cumsum(a, dim=4)
     Lx = torch.cat([torch.zeros_like(L[:, :, :, :, :1]), L[:, :, :, :, :-1]], dim=4)
@@ -606,8 +658,8 @@ def wkv6_chunked_plain(
     d_state = torch.einsum("bhnjsk,bhnjsv->bhnkv", kdec, vv)
     decay = torch.exp(rev[:, :, :, 0])  # (B, H, n, K)
 
-    x = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
-         if state is None else state.float())
+    x = (torch.zeros((b, h, dk, dv), dtype=acc, device=r.device)
+         if state is None else state.to(acc))
     entering = []
     for c in range(n):
         entering.append(x)
@@ -631,7 +683,7 @@ def wkv6_chunked_plain(
             o = o + torch.einsum("bhnts,bhnsv->bhntv", rnd(sc), vv[:, :, :, j])
         # Inside the block: f[s] = w_{s+1} ... w_{s+d-1} for pairs (s + d, s).
         ri, ki, wi = rr[:, :, :, i], kk[:, :, :, i], ww[:, :, :, i]
-        diag = torch.zeros(ri.shape[:-1] + (half,), dtype=torch.float32, device=r.device)
+        diag = torch.zeros(ri.shape[:-1] + (half,), dtype=acc, device=r.device)
         diag.diagonal(dim1=-2, dim2=-1).copy_((ri * uf * ki).sum(-1))
         f = torch.ones_like(ki[:, :, :, : half - 1])
         for d in range(1, half):
@@ -639,5 +691,142 @@ def wkv6_chunked_plain(
             diag.diagonal(offset=-d, dim1=-2, dim2=-1).copy_(vals)
             f = f[:, :, :, :-1] * wi[:, :, :, d : half - 1]
         outs.append(o + torch.einsum("bhnts,bhnsv->bhntv", rnd(diag), vv[:, :, :, i]))
-    o = torch.stack(outs, dim=3).reshape(b, h, n * chunk, dv)[:, :, :s]
-    return o.permute(0, 2, 1, 3).to(r.dtype), x
+    o = torch.stack(outs, dim=3).reshape(b, h, n * chunk, dv)
+    return o, x, torch.stack(entering, dim=2)
+    
+
+def wkv6_bwd_chunked_plain(
+    r: torch.Tensor,  # (B, S, H, K)
+    k: torch.Tensor,  # (B, S, H, K)
+    v: torch.Tensor,  # (B, S, H, V)
+    w: torch.Tensor,  # (B, S, H, K)
+    u: torch.Tensor,  # (H, K)
+    do: torch.Tensor,  # (B, S, H, V) the gradient of o
+    state: Optional[torch.Tensor] = None,  # (B, H, K, V) the initial state
+    d_state: Optional[torch.Tensor] = None,  # (B, H, K, V) the gradient of the last state
+) -> Tuple[torch.Tensor, ...]:
+    """The plain twin of the chunked backward kernel's arithmetic
+    (``wkv6_bwd`` on bfloat16 r): the same (dr, dk, dv, dw, du, d_state0)
+    as ``wkv6_bwd_plain``, computed chunk-parallel.
+
+    - S_c, the state entering each 64-step chunk: the chunked forward's
+      summaries and carry (``_wkv6_chunks``, its operands split hi/lo in
+      r's dtype).
+    - The same recurrence walked backwards is G_{t-1} = diag(w_t) G_t +
+      r_t^T do_t: the chunked forward on the time-reversed inputs (padded
+      to whole chunks at the end, then flipped, so that reversed chunk
+      n - 1 - c is chunk c) with k, r and do in the places of r, k and v
+      and ``d_state`` as the initial state gives G_end, the gradient
+      leaving each chunk, d_state0 as its last state, and dv as its
+      output (dv_t = k_t G_t + (k_t . (u r_t)) do_t).
+    - Each chunk from its S_c and G_end as the walk kernel does, in
+      16-step sub-chunks: S forwards, S_{p+1} = diag(prod w) S_p +
+      (k B)^T v (B: the product of the sub-chunk's w after each step, k B
+      rounded to two parts), each S_p kept as two parts; then G
+      backwards from G_end, G_{p-1} = diag(prod w) G_p + (r A)^T do (A:
+      the product before each step). With P(s, t), Q(t, s) the products of
+      w strictly between s and t, x_t = S_p do_t^T, y_t = G_p v_t^T (G_p
+      as two parts) and m[t, s] = do_t . v_s: dr_t = A_t x_t + sum_{s<t}
+      P k_s m[t, s] + u k_t m[t, t]; dk_t = B_t y_t + sum_{s>t} Q r_s
+      m[s, t] + u r_t m[t, t]; dw_t = rowsum(G_t . S_{t-1}) expanded:
+      A_t B_t rowsum(S_p . G_p) + B_t sum_{s<t} P k_s y_s + A_t sum_{s>t} Q
+      r_s x_s + sum_{s'<t<s} P(s', t) Q(t, s) r_s k_s' m[s, s'] (never a
+      quotient by w); du's partial r_t k_t m[t, t] per (batch row, chunk),
+      summed in that order.
+
+    float32 arithmetic (float64 for float64 inputs); dr, dk, dv in r's
+    dtype, dw in w's, du in u's, d_state0 in float32 (float64) or None
+    without ``state``."""
+    acc = torch.promote_types(r.dtype, torch.float32)
+    od = r.dtype
+    chunk, half, sub = 64, 8, 16  # the kernel's chunk, half and sub-chunk steps
+    b, s, h, dk = r.shape
+    n = -(-s // chunk)
+    pad = n * chunk - s
+
+    def flipped(x, fill):  # padded at the end to whole chunks, time reversed
+        if pad:
+            x = torch.cat([x, x.new_full((b, pad) + x.shape[2:], fill)], dim=1)
+        return torch.flip(x, [1])
+
+    _, _, s_in = _wkv6_chunks(r, k, v, w, u, state, chunk, half, od, acc)
+    o_rev, d_state0, g_in = _wkv6_chunks(flipped(k, 0.0), flipped(r, 0.0), flipped(do, 0.0),
+                                         flipped(w, 1.0), u, d_state, chunk, half, od, acc)
+    gv = torch.flip(o_rev, [2])[:, :, :s].permute(0, 2, 1, 3)  # (B, S, H, V)
+    def rnd(x):  # two parts in od, as the kernel stores a tensor-core operand
+        hi = x.to(od).to(acc)
+        return hi + (x - hi).to(od).to(acc)
+
+    def steps(x, fill):  # (B, S, H, D) -> (B, H, n chunk, D), identity steps past S
+        x = x.to(acc)
+        if pad:
+            x = torch.cat([x, x.new_full((b, pad) + x.shape[2:], fill)], dim=1)
+        return x.permute(0, 2, 1, 3)
+
+    rf, kf, vf, wf, df = steps(r, 0.0), steps(k, 0.0), steps(v, 0.0), steps(w, 1.0), steps(do, 0.0)
+    uf = u.to(acc)[None]  # (1, H, K)
+    gr, gk, gw = torch.zeros_like(rf), torch.zeros_like(kf), torch.zeros_like(wf)
+    du_part = torch.zeros((b, n, h, dk), dtype=acc, device=r.device)  # per (b, chunk)
+    n_sub = chunk // sub
+
+    def products(w_):  # (B, H, L, K): prefix products before each step, suffix after
+        ones = torch.ones_like(w_[:, :, :1])
+        pre = torch.cumprod(torch.cat([ones, w_[:, :, :-1]], dim=2), dim=2)
+        suf = torch.flip(torch.cumprod(torch.cat([ones, torch.flip(w_, [2])[:, :, :-1]], dim=2),
+                                       dim=2), [2])
+        return pre, suf
+
+    for c in range(n):
+        st = s_in[:, :, c]
+        entering = []  # S entering each sub-chunk, as two bf16 parts
+        for p in range(n_sub):
+            sl = slice(c * chunk + p * sub, c * chunk + (p + 1) * sub)
+            entering.append(rnd(st))
+            if p + 1 < n_sub:
+                _, suf = products(wf[:, :, sl])
+                kd = rnd(kf[:, :, sl] * suf)
+                st = (suf[:, :, 0] * wf[:, :, sl][:, :, 0])[..., None] * st + torch.einsum(
+                    "bhtk,bhtv->bhkv", kd, vf[:, :, sl])
+        g = g_in[:, :, n - 1 - c]
+        for p in range(n_sub - 1, -1, -1):
+            sl = slice(c * chunk + p * sub, c * chunk + (p + 1) * sub)
+            r_, k_, w_, v_, d_ = (x[:, :, sl] for x in (rf, kf, wf, vf, df))
+            sp = entering[p]
+            x_ = torch.einsum("bhkv,bhtv->bhtk", sp, d_)  # S_p do_t^T
+            y_ = torch.einsum("bhkv,bhtv->bhtk", rnd(g), v_)  # G_p v_t^T
+            m_ = torch.einsum("bhtv,bhsv->bhts", d_, v_)  # m[t, s] = do_t . v_s
+            cc = (sp * g).sum(-1)  # (B, H, K)
+            pre, suf = products(w_)
+            gam = [None] * sub  # sum over s > t of Q(t, s) r_s x_s
+            acc_g = torch.zeros_like(cc)
+            for t in range(sub - 1, -1, -1):
+                gam[t] = acc_g
+                acc_g = w_[:, :, t] * acc_g + r_[:, :, t] * x_[:, :, t]
+            beta = torch.zeros_like(cc)
+            uu = torch.zeros_like(k_)  # uu[s]: sum over s' < t of P(s', t) k_s' m[s, s']
+            for t in range(sub):
+                q = torch.ones_like(cc)
+                acc_d, acc_k = torch.zeros_like(cc), torch.zeros_like(cc)
+                for s2 in range(t + 1, sub):
+                    qr = q * r_[:, :, s2]
+                    acc_d = acc_d + qr * uu[:, :, s2]
+                    acc_k = acc_k + qr * m_[:, :, s2, t, None]
+                    q = q * w_[:, :, s2]
+                mtt = m_[:, :, t, t, None]
+                at, bt = pre[:, :, t], suf[:, :, t]
+                tg = c * chunk + p * sub + t
+                gr[:, :, tg] = at * x_[:, :, t] + uu[:, :, t] + uf * k_[:, :, t] * mtt
+                gk[:, :, tg] = bt * y_[:, :, t] + acc_k + uf * r_[:, :, t] * mtt
+                gw[:, :, tg] = at * bt * cc + bt * beta + at * gam[t] + acc_d
+                du_part[:, c] += r_[:, :, t] * k_[:, :, t] * mtt
+                beta = w_[:, :, t] * beta + k_[:, :, t] * y_[:, :, t]
+                uu = w_[:, :, t, None] * uu + k_[:, :, t, None] * m_[:, :, :, t, None]
+            rd = rnd(r_ * pre)
+            g = (pre[:, :, -1] * w_[:, :, -1])[..., None] * g + torch.einsum(
+                "bhtk,bhtv->bhkv", rd, d_)
+    gr, gk, gw = (x[:, :, :s].permute(0, 2, 1, 3) for x in (gr, gk, gw))
+    gu = torch.zeros((h, dk), dtype=acc, device=r.device)
+    for part in du_part.reshape(b * n, h, dk):  # over batch and chunk, in order
+        gu += part
+    return (gr.to(r.dtype), gk.to(k.dtype), gv.to(v.dtype), gw.to(w.dtype), gu.to(u.dtype),
+            None if state is None else d_state0)

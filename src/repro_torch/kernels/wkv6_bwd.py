@@ -4,15 +4,24 @@ The kernel is ``csrc/wkv6_bwd.cu`` (its header says what it replaces,
 what bounds it and how). ``wkv6_bwd`` launches it on CUDA tensors and
 raises on anything else; ``wkv6_bwd_plain`` (``kernels/ref.py``) is the
 same reverse-time recurrences written out in PyTorch, which CPU tensors
-take and the kernel is held against. ``launches`` counts kernel calls
-(one per call, though a call is two CUDA launches: the walk, then du's
-sum over the batch). ``wkv6.WKV6Fn`` calls it; nothing else on a model's
-path does.
+take and the kernel is held against (``ref.wkv6_bwd_chunked_plain``
+repeats the chunked design's arithmetic). ``launches`` counts kernel
+calls (one per call, though a call is several CUDA launches: seven in
+the chunked design, two in the sequential one). ``wkv6.WKV6Fn`` calls
+it; nothing else on a model's path does.
 
-The kernel recomputes the forward's states from the inputs (a
-checkpoint every 16 steps in float32 scratch, 4 x 16 KB a step's worth
-of rows kept per block in shared memory), so it needs nothing from the
-forward but its inputs, whichever forward design ran.
+Two designs, a rule by dtype (never a fallback): bfloat16 r runs the
+chunked design (64-step chunks in parallel: the states entering and the
+gradients leaving each chunk from the chunked forward's tensor-core
+summaries and carries, run forwards and with time reversed; dv from its
+output kernel; one block per chunk for dr, dk, dw from 16-step
+sub-chunks; du's partials summed in order); float32 r, whose 2e-5
+tolerance bf16 products cannot meet, runs the sequential design (one
+block per (b, h) over all of time).
+``previous_design`` runs the sequential design at every dtype, for
+side-by-side timing only. Both recompute the forward's states from the
+inputs, so they need nothing from the forward but its inputs, whichever
+forward design ran.
 """
 from __future__ import annotations
 
@@ -36,11 +45,17 @@ _ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
 def _fn(symbol: str = "wkv6_bwd"):
     fn = getattr(_build.load(NAME), symbol)
     if fn.argtypes is None:
-        if symbol == "wkv6_bwd":
-            fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        if symbol == "wkv6_bwd_scratch_floats":
+            fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
         else:
-            fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+            fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
+
+
+def design(r_dtype: torch.dtype) -> str:
+    """The design a call with r in this dtype runs: "chunked" for
+    bfloat16, "sequential" for float32."""
+    return "chunked" if r_dtype == torch.bfloat16 else "sequential"
 
 
 def wkv6_bwd(
@@ -57,6 +72,20 @@ def wkv6_bwd(
     None without ``state``) from the CUDA kernel. CUDA tensors only:
     raises otherwise."""
     global launches
+    out = _launch("wkv6_bwd", r, k, v, w, u, do, state, d_state)
+    launches += 1
+    return out
+
+
+def previous_design(r, k, v, w, u, do, state=None, d_state=None):
+    """The sequential design at every dtype on the same arguments, for
+    side-by-side timing. Not counted in ``launches``; nothing on a model's
+    path calls it."""
+    return _launch("wkv6_bwd_previous", r, k, v, w, u, do, state, d_state)
+
+
+def _launch(symbol, r, k, v, w, u, do, state, d_state):
+    """Check the arguments and run one call of the C entry point ``symbol``."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_bwd kernel needs CUDA tensors, got {r.device}")
     if r.dtype not in _DTYPES or w.dtype not in (torch.float32, r.dtype):
@@ -81,19 +110,19 @@ def wkv6_bwd(
     gr, gk, gv, gw = (torch.empty_like(x) for x in (r, k, v, w))
     gu = torch.empty_like(u)
     gs = None if state is None else torch.empty_like(state)
-    scratch = torch.empty(_fn("wkv6_bwd_scratch_floats")(b, s, h, dk), dtype=torch.float32,
-                          device=dev)
+    chunked = symbol == "wkv6_bwd" and design(r.dtype) == "chunked"
+    scratch = torch.empty(_fn("wkv6_bwd_scratch_floats")(int(chunked), b, s, h, dk, dv),
+                          dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _fn()(
+    err = _fn(symbol)(
         _DTYPES[r.dtype], _DTYPES[w.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
         w.data_ptr(), u.data_ptr(), do.data_ptr(), ptr(state), ptr(d_state), gr.data_ptr(),
         gk.data_ptr(), gv.data_ptr(), gw.data_ptr(), gu.data_ptr(), ptr(gs), scratch.data_ptr(),
         b, s, h, dk, dv, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
-        raise RuntimeError(f"wkv6_bwd launch failed: cudaError {err}")
-    launches += 1
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
     return gr, gk, gv, gw, gu, gs
 
 
-__all__ = ["wkv6_bwd", "wkv6_bwd_plain", "launches"]
+__all__ = ["design", "wkv6_bwd", "wkv6_bwd_plain", "launches", "previous_design"]

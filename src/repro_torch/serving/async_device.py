@@ -18,11 +18,22 @@ same shape:
   completion instant is whatever the hardware delivers.
 
 Health hooks: when a ``watchdog`` (core/faults.CompletionWatchdog) is
-attached, every submit arms a completion deadline on the loop thread and
+attached, every job arms a completion deadline on the loop thread and
 every completion disarms it — a hung ``StepHandle.wait`` therefore
 becomes a *visible* overdue signal instead of a silent wedge.  When
 ``on_measured`` is set, each completion reports ``(expected, actual)``
 seconds to it, which is what feeds live WCET re-profiling.
+
+The clock of both starts when the device reaches the job. With a
+``mark_fn`` (the engine's ``stream_mark``: a CUDA event recorded on the
+stream ahead of the job's launches) the waiter first waits for that
+mark and then posts the start to the loop: slices that share one CUDA
+stream queue behind each other's work, and that wait is not time the
+device spent on this job (a reference slice is its own device and never
+waits so). A job the stream never reaches is still caught: the job at
+the head of the stream has begun, and its own slice's clock runs.
+Without a mark (the CPU, where ``mark_fn`` returns None) the clock
+starts at submit.
 
 The EDF worker's submit-only-when-idle discipline is unchanged, so the
 non-preemptive EDF semantics (and the Phase-2 imitator's model of them)
@@ -41,15 +52,17 @@ from repro_torch.core import telemetry as T
 class _Inflight:
     """One submitted job travelling from the loop to the waiter and back."""
 
-    __slots__ = ("job", "handle", "on_complete", "job_bytes", "start", "exec_time", "released")
+    __slots__ = ("job", "handle", "on_complete", "job_bytes", "start", "exec_time", "began",
+                 "released")
 
-    def __init__(self, job, handle, on_complete, job_bytes, start, exec_time):
+    def __init__(self, job, handle, on_complete, job_bytes, start, exec_time, began=None):
         self.job = job
         self.handle = handle
         self.on_complete = on_complete
         self.job_bytes = job_bytes
-        self.start = start
+        self.start = start  # the clock's start: submit, then the mark's instant
         self.exec_time = exec_time
+        self.began = began  # the stream mark ahead of the job's launches, or None
         self.released = False
 
 
@@ -64,6 +77,10 @@ class AsyncDevice:
         job -> handle. Must launch the job without blocking and return a
         handle whose ``wait()`` blocks until device completion (see
         ``serving.engine.StepHandle``).
+    mark_fn:
+        () -> an event with ``synchronize()`` recorded on the device's
+        stream, or None; called just before ``dispatch_fn``. The job's
+        watchdog and measured clocks start once it completes.
     """
 
     #: Seconds ``close()`` waits for the waiter thread before declaring
@@ -77,9 +94,11 @@ class AsyncDevice:
         dispatch_fn: Callable[[object], object],
         on_idle: Optional[Callable[[], None]] = None,
         join_timeout: Optional[float] = None,
+        mark_fn: Optional[Callable[[], object]] = None,
     ):
         self.loop = loop
         self.dispatch_fn = dispatch_fn
+        self.mark_fn = mark_fn
         self.on_idle = on_idle
         self.join_timeout = self.JOIN_TIMEOUT if join_timeout is None else join_timeout
         self._busy_until: Optional[float] = None
@@ -141,11 +160,12 @@ class AsyncDevice:
         self._busy_until = start + exec_time
         self.resident_bytes += job_bytes
         self.peak_bytes = max(self.peak_bytes, self.resident_bytes)
+        began = self.mark_fn() if self.mark_fn is not None else None
         handle = self.dispatch_fn(job)  # returns immediately (stream-ordered)
-        if self.watchdog is not None:
+        if self.watchdog is not None and began is None:
             self.watchdog.started(job, exec_time)
         self.loop.hold()  # keep run() alive while the heap may be empty
-        item = _Inflight(job, handle, on_complete, job_bytes, start, exec_time)
+        item = _Inflight(job, handle, on_complete, job_bytes, start, exec_time, began)
         with self._lock:
             self._inflight = item
         self._inbox.put(item)
@@ -158,6 +178,12 @@ class AsyncDevice:
                 return
             err = None
             try:
+                if item.began is not None:
+                    item.began.synchronize()  # the stream has reached the job
+                    self.loop.post(
+                        lambda it=item: self._begin(it),
+                        priority=getattr(self.loop, "PRIO_COMPLETE", 1),
+                    )
                 item.handle.wait()
             except Exception as e:  # re-raised on the loop thread
                 err = self.last_error = e
@@ -180,7 +206,15 @@ class AsyncDevice:
                 self._inflight = None
         self.loop.release()
 
-    # ----- loop-thread completion ----------------------------------------
+    # ----- loop-thread begin and completion ------------------------------
+    def _begin(self, item: _Inflight) -> None:
+        """The stream reached ``item``: its clocks start now. Posted before
+        its completion by the same waiter, at the same priority, so it
+        always runs first."""
+        item.start = self.loop.now
+        if self.watchdog is not None:
+            self.watchdog.started(item.job, item.exec_time)
+
     def _complete(self, item: _Inflight, err: Optional[Exception] = None) -> None:
         now = self.loop.now
         actual = now - item.start

@@ -340,7 +340,7 @@ def _wire_live_scheduler(
             payload = None
         return engine.dispatch(mid, shape, job.batch_size, kind, payload=payload)
 
-    device = AsyncDevice(loop, dispatch_fn=dispatch_job)
+    device = AsyncDevice(loop, dispatch_fn=dispatch_job, mark_fn=engine.stream_mark)
     if device_wrap is not None:
         device = device_wrap(device)
     # exec_time under async dispatch is the busy-until ESTIMATE (the

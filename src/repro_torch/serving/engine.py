@@ -289,6 +289,12 @@ class InferenceEngine:
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
+    def stream_mark(self) -> Optional[Any]:
+        """A CUDA event recorded on the current stream ahead of the next
+        dispatch's launches (None on the CPU): ``AsyncDevice`` starts a
+        job's clocks once the stream has reached it."""
+        return self._record()
+
     # ----- step factories --------------------------------------------------
     def _prefill_fn(self, mid: str, seq: int, batch: int):
         key = ("prefill", mid, seq, batch)

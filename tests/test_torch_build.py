@@ -68,7 +68,8 @@ def test_backward_route_bf16_up_to_128_is_wgmma(d):
 
 @pytest.mark.parametrize("d", [136, 192, 256])
 def test_backward_route_bf16_past_128_is_mma_sync_and_float32_refused(d):
-    assert fb.route(torch.bfloat16, d) == "mma_sync"
+    # The wide wgmma route took over bf16 at 128 < D <= 256 from mma.sync.
+    assert fb.route(torch.bfloat16, d) == "wgmma_wide"
     with pytest.raises(ValueError):
         fb.route(torch.float32, d)
 

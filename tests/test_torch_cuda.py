@@ -909,10 +909,11 @@ def test_flash_backward_kernel_on_card(cuda, dtype, case):
 def test_flash_backward_routes_on_card(cuda):
     """Each (dtype, D) takes the route the kernel's header states, by the
     built library's own dispatch: bf16 D <= 128 wgmma, bf16 D > 128
-    mma.sync, float32 FMA (D <= 128); the rest refused by both."""
+    the wide wgmma route, float32 FMA (D <= 128); the rest refused by
+    both."""
     from repro_torch.kernels import flash_attention_bwd as fb
 
-    want = {torch.bfloat16: lambda d: "wgmma" if d <= 128 else "mma_sync",
+    want = {torch.bfloat16: lambda d: "wgmma" if d <= 128 else "wgmma_wide",
             torch.float32: lambda d: "fma"}
     for dtype, rule in want.items():
         for d in (8, 16, 32, 64, 96, 128, 136, 192, 256):
@@ -926,6 +927,52 @@ def test_flash_backward_routes_on_card(cuda):
             for fn in (fb.route, fb.kernel_route):
                 with pytest.raises(ValueError):
                     fn(dtype, d)
+
+
+# (B, S, H, KV, D, window, positions): recurrentgemma-9b's MQA layout
+# and gemma3-12b's GQA one at D = 256, small S; ragged S, D = 136 (padded
+# to 256), positions.
+WIDE_CASES = [(1, 320, 16, 1, 256, 100, False), (1, 256, 16, 8, 256, 128, False),
+              (2, 201, 4, 1, 136, 70, False), (1, 130, 8, 2, 256, None, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: "B{}-S{}-H{}-KV{}-D{}-w{}-pos{}".format(*c))
+def test_flash_backward_wide_route_on_card(cuda, case):
+    """bf16 at 128 < D <= 256: the wide route against the plain backward
+    at 2e-2, two calls torch.equal, its parts the rule's for the card, and
+    no kernel of the first design launched (the profiler's kernel names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels.ref import flash_bwd_head_parts
+
+    b, s, h, kv, d, window, with_pos = case
+    q, k, v, do, kw = _bwd_inputs(cuda, torch.bfloat16, (b, s, s, h, kv, d, True, window,
+                                                         with_pos))
+    out, lse = fk.flash_attention_lse(q, k, v, **kw)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    parts = fb.head_parts(b, s, h, kv, d, torch.bfloat16, cuda)
+    assert parts == flash_bwd_head_parts(b, s, kv, h // kv, sms)
+    assert fb.route(torch.bfloat16, d) == fb.kernel_route(torch.bfloat16, d) == "wgmma_wide"
+    before = ops.launch_counts()["flash_attention_bwd"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+    again = fb.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 2
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert any("dkdv_wide_wgmma_kernel" in n for n in names), names
+    assert any("dq_wide_wgmma_kernel" in n for n in names), names
+    assert not any("dkdv_kernel<" in n or "dq_kernel<" in n for n in names), names
+    assert any("dkdv_reduce_kernel" in n for n in names) == (parts > 1), names
+    want = fb.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL[torch.bfloat16],
+                                   rtol=TOL[torch.bfloat16], msg=lambda m, n=name: f"{n}: {m}")
 
 
 @pytest.mark.cuda
@@ -1046,6 +1093,41 @@ def test_wkv6_backward_kernel_on_card(cuda, case, dtype, w_dtype):
         assert torch.isfinite(gt.float()).all(), name
         torch.testing.assert_close(gt.float(), wt.float(), atol=tol, rtol=tol, msg=name)
     assert (got[5] is None) == (not with_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [77, 200])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_backward_chunked_design_on_card(cuda, s, w_dtype, with_state):
+    """bf16 r takes the chunked design: against the plain backward
+    (``wkv6_bwd_plain``) and the sequential design (``previous_design``)
+    at 2e-2, S ragged against the 64-step chunks and 16-step tiles, two
+    calls torch.equal; float32 r keeps the sequential design."""
+    from repro_torch.kernels import wkv6_bwd as wb
+    from repro_torch.kernels.ref import wkv6_bwd_plain
+
+    assert wb.design(torch.bfloat16) == "chunked" and wb.design(torch.float32) == "sequential"
+    b, h, k = 2, 3, 64
+    r, kk, v, w, u, state = _wkv_inputs(cuda, b, s, h, k, torch.bfloat16, w_dtype, seed=7 * s)
+    state = state if with_state else None
+    g = torch.Generator(device=cuda).manual_seed(s)
+    do = torch.randn((b, s, h, k), generator=g, device=cuda).to(torch.bfloat16)
+    ds = torch.randn((b, h, k, k), generator=g, device=cuda)
+    args = (r, kk, v, w, u, do, state, ds)
+    got, again = wb.wkv6_bwd(*args), wb.wkv6_bwd(*args)
+    prev = wb.previous_design(*args)
+    want = wkv6_bwd_plain(*args)
+    tol = TOL[torch.bfloat16]
+    for name, gt, ag, pv, wt in zip(("dr", "dk", "dv", "dw", "du", "d_state0"), got, again,
+                                    prev, want):
+        if name == "d_state0" and not with_state:
+            assert gt is None and pv is None
+            continue
+        assert gt.dtype == pv.dtype and torch.equal(gt, ag), name
+        for label, x in (("plain", wt), ("sequential", pv)):
+            torch.testing.assert_close(gt.float(), x.float(), atol=tol, rtol=tol,
+                                       msg=lambda m, n=f"{name} vs {label}": f"{n}: {m}")
 
 
 @pytest.mark.cuda

@@ -1,0 +1,131 @@
+"""The port's device clock on a shared stream, on the CPU.
+
+Slices of one card share one CUDA stream, so a job can wait behind
+other slices' work before the device reaches it. ``AsyncDevice`` with a
+``mark_fn`` (on the card: a CUDA event recorded ahead of the job's
+launches) starts the job's watchdog and measured clocks when that mark
+completes, so the wait is not counted as time the device spent on the
+job; without a mark the clock starts at submit, as before. Here the
+marks and handles are fakes on the wall clock, and the watchdog's
+signals go to the real ``SliceHealthMonitor`` (hung past
+``hang_after``: quarantined) over a one-slice stand-in for the cluster.
+"""
+import threading
+import time
+from types import SimpleNamespace
+
+import pytest
+
+from repro_torch import core as P
+from repro_torch.serving.async_device import AsyncDevice
+
+EXPECTED = 0.02  # the job's profiled WCET (s)
+# deadline max(0.02 x 2, 0.1) = 0.1 s; hung after 0.1 x 6 / 2 = 0.3 s
+CFG = P.WatchdogConfig(slack=2.0, hang_slack=6.0, min_deadline=0.1)
+REACH = 0.5  # the stream reaches the late job 0.5 s after its submit
+RUN = 0.05  # then it runs this long
+
+
+class _At:
+    """A mark or handle that blocks until an instant on perf_counter, or
+    until ``release`` is set (``at`` None: never on its own)."""
+
+    def __init__(self, at=None, release=None):
+        self.at, self.release = at, release or threading.Event()
+
+    def _block(self):
+        if self.at is None:
+            self.release.wait()
+        else:
+            time.sleep(max(0.0, self.at - time.perf_counter()))
+
+    synchronize = wait = _block
+
+
+class _Cluster:
+    """The monitor's view of one live slice: health, liveness, fail_slice,
+    and the WCET rescale a suspect slice's re-profile asks for."""
+
+    def __init__(self, loop):
+        self.loop = loop
+        self.slices = {"s": SimpleNamespace(health=P.HEALTHY, alive=True, scheduler=None)}
+        self.device = None
+
+    def fail_slice(self, name):
+        self.slices[name].alive = False
+        self.device.close()
+
+    def _rescale(self, name, drift):
+        self.drift = drift
+
+
+def _run(mark_at, done_at, use_mark=True, throttle=None):
+    """One job through AsyncDevice under the armed watchdog; ``mark_at``
+    and ``done_at`` are seconds after submit (None: never). Returns
+    (monitor, completions, measured (expected, actual) pairs, the
+    submit instant on the loop's clock)."""
+    loop = P.WallClock()
+    cluster = _Cluster(loop)
+    monitor = P.SliceHealthMonitor(cluster, CFG)
+    wedge = threading.Event()
+    t0 = time.perf_counter()
+    at = lambda s: None if s is None else t0 + s
+    dev = AsyncDevice(loop, dispatch_fn=lambda job: _At(at(done_at), wedge),
+                      mark_fn=(lambda: _At(at(mark_at), wedge)) if use_mark else None)
+    dev.watchdog = P.CompletionWatchdog(
+        loop, CFG, on_overdue=lambda job, e, el: monitor.note_overdue("s", job, e, el))
+    measured = []
+    dev.on_measured = lambda e, a: (measured.append((e, a)), monitor.note_complete("s", e, a))
+    cluster.device = dev
+    device = dev
+    if throttle is not None:  # a fault wrapper around the real device, as the cluster builds
+        device = P.FaultyDevice(dev, P.FaultPlan((P.FaultSpec(P.DELAY, 0, **throttle),)))
+    done = []
+    submitted = loop.now
+    device.submit("job", EXPECTED, lambda job, t: done.append(t))
+    loop.run(until=submitted + 2.0)
+    wedge.set()
+    dev.close()
+    return monitor, done, measured, submitted
+
+
+def _quarantines(monitor):
+    return [(t, r) for t, _n, _o, new, r in monitor.transitions if new == P.QUARANTINED]
+
+
+def test_a_job_the_stream_reaches_late_is_not_quarantined():
+    monitor, done, measured, _ = _run(REACH, REACH + RUN)
+    assert _quarantines(monitor) == [] and len(done) == 1
+    # The measured clock also starts at the mark: about RUN, not REACH + RUN.
+    (expected, actual), = measured
+    assert expected == EXPECTED and actual < REACH
+
+
+def test_without_a_mark_the_clock_starts_at_submit():
+    # The same job and wait, with no mark (the CPU's engine): the
+    # clock runs from submit and the wait reads as a hang.
+    monitor, done, _, submitted = _run(REACH, REACH + RUN, use_mark=False)
+    (t, reason), = _quarantines(monitor)
+    assert "hung" in reason and t - submitted >= CFG.hang_after(EXPECTED)
+    assert done == []  # the slice failed before its completion landed
+
+
+def test_a_wedged_job_is_still_quarantined_at_hang_after():
+    # The stream reaches the job at once and it never completes.
+    monitor, done, _, submitted = _run(0.0, None)
+    (t, reason), = _quarantines(monitor)
+    assert "hung" in reason
+    # At the first heartbeat past hang_after (heartbeats every deadline),
+    # give or take the host's scheduling.
+    late = CFG.hang_after(EXPECTED) + CFG.deadline_for(EXPECTED) + 0.2
+    assert CFG.hang_after(EXPECTED) <= t - submitted < late
+    assert done == []
+
+
+@pytest.mark.parametrize("reach", [0.0, REACH])
+def test_a_throttled_job_behind_a_late_stream_lives(reach):
+    # FaultyDevice's DELAY holds the completion to submit + max(4 x WCET,
+    # WCET + 0.16) = 0.18 s, under the 0.3 s hang, wherever the stream
+    # reaches the job.
+    monitor, done, _, _ = _run(reach, reach + RUN, throttle=dict(factor=4.0, extra=0.16))
+    assert _quarantines(monitor) == [] and len(done) == 1

@@ -39,6 +39,7 @@ from repro_torch.kernels.ref import (
     WKV_LOG_CLAMP,
     rglru_bwd_plain,
     rglru_ref,
+    wkv6_bwd_chunked_plain,
     wkv6_bwd_plain,
     wkv6_chunked_plain,
     wkv6_ref,
@@ -236,7 +237,8 @@ def test_wkv6_clamp_case_dw_departs_only_below_the_clamp():
     (within 1e-6); dr, dk, dv, du and d_state0 agree at 1e-6; dw agrees at
     1e-6 wherever w > e^-50 and departs only where w < e^-70, where the
     clamped function's is exactly 0 and the sequential derivative's is
-    not. The sequential dw there is the reference's (float32, 2e-5)."""
+    not. The sequential dw there is the reference's (float32, 2e-5), and
+    the chunked backward's twin gives it too (1e-6, every gradient)."""
     def log_w(rng, shape):  # x = log(-log w): about a third of w at e^-80
         x = -1.0 + 0.5 * rng.standard_normal(shape)
         return np.where(rng.random(shape) < 0.3, np.log(80.0), x).astype(np.float32)
@@ -266,6 +268,13 @@ def test_wkv6_clamp_case_dw_departs_only_below_the_clamp():
     jw = _jax_wkv_grads(r, kk, v, w, u, state, do, ds)[3]
     f32 = wkv6_bwd_plain(*(torch.from_numpy(x) for x in (r, kk, v, w, u, do, state, ds)))[3]
     np.testing.assert_allclose(f32.numpy(), np.asarray(jw), atol=TOL, rtol=TOL)
+    # The chunked backward's twin: its chunk states carry the clamp (an
+    # e^-60 effect), its walk forms dw from G_t and S_{t-1} on w itself,
+    # so it gives the sequential derivative, below the clamp too.
+    chunked = wkv6_bwd_chunked_plain(*ins[:5], d(do), ins[5], d(ds))
+    for name, g, want in zip(("dr", "dk", "dv", "dw", "du", "d_state0"), chunked, seq):
+        torch.testing.assert_close(g, want, atol=1e-6, rtol=1e-6, msg=name)
+    assert float(chunked[3][below].abs().max()) > 1e-3
 
 
 def test_only_decode_attention_refuses_a_gradient():
