@@ -16,7 +16,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              HGMMA, decode_attention, wkv6 and wkv6_bwd (their chunked
              designs) HMMA, and if a wgmma kernel of flash_attention_bwd
              spills or its four wide-route wgmma kernels are not all
-             built.
+             built, or if rglru or rglru_bwd lacks one of its chunked
+             route's three kernels.
 3. kernels — holds each kernel against its plain PyTorch version at the
              main path's shapes, in bf16 (2e-2) and float32 (2e-5): the
              two attention kernels at granite-3-2b's and recurrentgemma-
@@ -24,11 +25,18 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              rwkv6-1.6b's (both designs: chunked for bf16 from 64 steps,
              sequential for float32 and decode's single step; the chunked
              one also at extreme decays, bit-identical repeats),
-             rglru_scan at recurrentgemma-9b's; times kernel, plain
+             rglru_scan at recurrentgemma-9b's served and training shapes
+             and ragged ones (both routes: float32 bit for bit the route's
+             plain twin, the chunked one within 2e-5 of the sequential
+             walk, two calls equal; extreme decays on the chunked route);
+             times kernel, plain
              version and, for attention, SDPA (the yardstick), and the
              previous design in turns with the kernel (new, old, old,
-             new): bf16 attention, and wkv6 at (B, S) = (8, 512), (1, 512)
-             and (8, 1) against its sequential design. Kernel, previous
+             new): bf16 attention, wkv6 at (B, S) = (8, 512), (1, 512)
+             and (8, 1) against its sequential design, and rglru_scan at
+             (B, S, D) = (8, 512, 4096) and (1, 4096, 4096) against its
+             streaming design (fails unless the training shape is 2x
+             faster and the served one within 3%). Kernel, previous
              and SDPA times are device times (a CUDA graph of 20 calls,
              replayed); the plain versions are timed eagerly, and so is
              each attention kernel's wrapper once more, for its
@@ -161,8 +169,12 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              (2e-5), with an initial state and at S = 1000, two calls
              torch.equal, timed (CUDA-graph replays) beside the plain
              backward and the bound; wkv6_bwd (bf16: the chunked design)
-             in turns with its sequential design, each design's launches
-             timed apart. (b) Three full-width runs of 10 steps
+             in turns with its sequential design, rglru_bwd (chunked at
+             the training shape, also held bit for bit against its
+             route's plain twin, at ragged D, the served batch's
+             streaming shape and extreme decays) in turns with its
+             streaming design (fails unless 3x faster), each design's
+             launches timed apart. (b) Three full-width runs of 10 steps
              of make_train_step (bf16, remat on, seeded Zipf tokens, AdamW):
              granite-3-2b (40 layers, 8 x 1024), rwkv6-1.6b (24 layers,
              8 x 1024) and recurrentgemma-9b (12 of 38 layers: four rglru,
@@ -193,7 +205,8 @@ launched.
 
 Before the last line it prints the nvidia-smi line and one JSON object
 with a row per kernel, seven rows (`previous_ms`: the previous design's
-time, null for rglru_scan and rglru_bwd;
+time; the rglru_scan row also has `train_*` times and the bound at the
+training shape (1, 4096, 4096);
 the wkv6 row also has `b1_*` and `decode_*` times and bounds at (1, 512)
 and (8, 1); the attention rows carry `shapes`, a record per timed
 whisper / qwen2-vl / recurrentgemma / gemma3 shape; the backward rows a
@@ -735,8 +748,8 @@ def rglru_inputs(torch, gen, b, s, d, dtype, with_h0):
 
 def recurrence_kernels(torch, report):
     """wkv6 at rwkv6-1.6b's shapes and rglru_scan at recurrentgemma-9b's,
-    each against its plain version, then timed at the prefill shape."""
-    from repro_torch.kernels import rglru as rk
+    each against its plain version, then timed (``rglru_kernel_checks``
+    for rglru_scan)."""
     from repro_torch.kernels import wkv6 as wk
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -786,20 +799,6 @@ def recurrence_kernels(torch, report):
               assert_close("wkv6 in place state", state, want_last, TOL["bfloat16"]))
     log(f"wkv6 decode in place (state_out = state): max_abs_err={err:.3e}")
 
-    bsz, d = 8, 4096
-    cases = [(bb, s, dd, dt, h0) for bb, s, dd in ((bsz, PREFILL_SEQ, d), (bsz, 1, d), (3, 37, 520))
-             for dt in (f32, bf16) for h0 in (False, True)]
-    for bb, s, dd, dt, with_h0 in cases:
-        a, x, h0 = rglru_inputs(torch, gen, bb, s, dd, dt, with_h0)
-        got, last = rk.rglru_scan(a, x, h0)
-        want, want_last = rk.rglru_scan_plain(a, x, h0)
-        torch.cuda.synchronize()
-        name = "bfloat16" if dt == bf16 else "float32"
-        label = f"rglru_scan B={bb} S={s} D={dd} {name} h0={with_h0}"
-        err = assert_close(label, got, want, TOL[name])
-        err_h = assert_close(label + " (last h)", last, want_last, TOL[name])
-        log(f"{label}: max_abs_err h {err:.3e}, last {err_h:.3e}")
-
     # ----- timing at the served shapes -----------------------------------
     # wkv6 (bf16 r/k/v, f32 w, an initial state read once and the last
     # state written) at rwkv6-1.6b's largest prefill bucket, its batch-1
@@ -839,29 +838,148 @@ def recurrence_kernels(torch, report):
            for key in ("ms", "previous_ms", "bound_ms")},
     )
     log(f"wkv6 plain at B={b} S={PREFILL_SEQ}: {plain_ms:.4f} ms; no single library call")
-    # rglru_scan: recurrentgemma-9b's largest prefill bucket, float32 gates,
-    # no h0 (the model's prefill), last h written.
-    s = PREFILL_SEQ
-    base = rglru_inputs(torch, gen, bsz, s, d, f32, False)[:2]
-    per_copy = sum(t.numel() * t.element_size() for t in base)
-    inputs = [base] + [tuple(t.clone() for t in base) for _ in range(n_copies(per_copy) - 1)]
-    got, _ = rk.rglru_scan(*base)
-    err = assert_close("rglru timed case", got, rk.rglru_scan_plain(*base)[0], TOL["float32"])
-    ms = device_ms(lambda *a: rk.rglru_scan(*a), inputs)
-    plain_ms = time_ms(lambda *a: rk.rglru_scan_plain(*a), inputs, iters=3, warmup=1)
-    a = base[0]
-    nbytes = 3 * a.numel() * 4 + bsz * d * 4  # a, b read; h written; last h
-    flops = 2 * a.numel()
-    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    rglru_kernel_checks(torch, report)
+
+
+def float64_departure(got, want64) -> float:
+    """max |got - want64| / (1 + |want64|): the share of the float32
+    tolerance's form (tol + tol |want|) that ``got`` uses against a float64
+    answer."""
+    return float(((got.double() - want64).abs() / (1 + want64.abs())).max().item())
+
+
+def rglru_check(torch, label, a, x, h0, exact=False):
+    """One rglru_scan call against its plain version (the sequential walk,
+    at the dtype's tolerance) and, on the chunked route, against the
+    chunked twin (``torch.equal`` in float32); two calls equal. With
+    ``exact`` (decays a hair below 1, where the float32 sequential walk
+    itself departs from the exact answer by more than 2e-5 over thousands
+    of steps), the oracle is the walk in float64 instead: the kernel no
+    further from it than the float32 sequential walk, within 2e-5.
+    Returns (max abs err of h, of the last h, route name)."""
+    from repro_torch.kernels import rglru as rk
+    from repro_torch.kernels.ref import rglru_chunked_plain, rglru_ref
+
+    got, last = rk.rglru_scan(a, x, h0)
+    again = rk.rglru_scan(a, x, h0)
+    want, want_last = rk.rglru_scan_plain(a, x, h0)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again[0]) and torch.equal(last, again[1])):
+        raise AssertionError(f"{label}: two calls differ")
+    name = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
+    plan = rk.route(a)
+    if plan is not None:
+        label += f" [chunked L={plan[0]} n={plan[1]}]"
+        twin, twin_last = rglru_chunked_plain(a, x, h0, plan[0])
+        if name == "float32" and not (torch.equal(got, twin) and torch.equal(last, twin_last)):
+            raise AssertionError(f"{label}: not bit for bit the chunked twin")
+        assert_close(label + " (chunked twin)", got, twin, TOL[name])
+    else:
+        label += " [streaming]"
+        if name == "float32" and not (torch.equal(got, want) and torch.equal(last, want_last)):
+            raise AssertionError(f"{label}: not bit for bit the sequential plain version")
+    if exact:
+        w64 = rglru_ref(a.double(), x.double(), None if h0 is None else h0.double())[0]
+        dep, dep_seq = float64_departure(got, w64), float64_departure(want, w64)
+        if not dep <= dep_seq + TOL[name]:
+            raise AssertionError(f"{label}: {dep:.3e} from the float64 walk, the float32 "
+                                 f"sequential walk {dep_seq:.3e}")
+        log(f"{label}: from the float64 walk {dep:.3e} (the float32 sequential walk "
+            f"{dep_seq:.3e}), two calls equal")
+        return dep, dep, "chunked" if plan is not None else "streaming"
+    err = assert_close(label, got, want, TOL[name])
+    err_h = assert_close(label + " (last h)", last, want_last, TOL[name])
+    log(f"{label}: max_abs_err h {err:.3e}, last {err_h:.3e}, two calls equal")
+    return err, err_h, "chunked" if plan is not None else "streaming"
+
+
+def rglru_timed(torch, gen, bsz, s, d, new, old):
+    """(new ms, old ms, bound ms, bound by, max abs err of ``new`` against
+    the sequential plain version, the route's name) for rglru_scan at
+    (bsz, s, d) float32
+    with no h0 (the model's prefill and train step), ``new`` and ``old``
+    timed in turns as CUDA-graph replays over copies past L2."""
+    from repro_torch.kernels import rglru as rk
+
+    base = rglru_inputs(torch, gen, bsz, s, d, torch.float32, False)[:2]
+    inputs = copies(base, 2 * base[0].numel() * 4)
+    err = assert_close(f"rglru timed B={bsz} S={s}", new(*base)[0], rk.rglru_scan_plain(*base)[0],
+                       TOL["float32"])
+    ms, old_ms = in_turns(new, old, inputs)
+    nbytes = 3 * base[0].numel() * 4 + bsz * d * 4  # a, b read; h written; last h
+    bound_ms, bound_by = bound(nbytes, 2 * base[0].numel(), "float32")
+    route = "streaming" if rk.route(base[0]) is None else "chunked"
+    del base, inputs
+    return ms, old_ms, bound_ms, bound_by, err, route
+
+
+def rglru_kernel_checks(torch, report):
+    """rglru_scan at recurrentgemma-9b's served and training shapes and
+    ragged ones, on both routes, at extreme decays; then timed in turns
+    with ``previous_design`` (the streaming kernel) at the served prefill
+    (B = 8, S = 512) and the train step's shape (B = 1, S = 4096)."""
+    from repro_torch.kernels import rglru as rk
+
+    gen = torch.Generator(device="cuda").manual_seed(4322)
+    f32, bf16 = torch.float32, torch.bfloat16
+    bsz, d = 8, 4096
+    shapes = ((bsz, PREFILL_SEQ, d), (bsz, 1, d), (3, 37, 520), (1, RGEMMA_TRAIN_SEQ, d),
+              (2, 1000, 520), (1, PREFILL_SEQ, d))
+    routes = set()
+    for bb, s, dd in shapes:
+        for dt in (f32, bf16):
+            for with_h0 in (False, True):
+                a, x, h0 = rglru_inputs(torch, gen, bb, s, dd, dt, with_h0)
+                name = "bfloat16" if dt == bf16 else "float32"
+                routes.add(rglru_check(torch, f"rglru_scan B={bb} S={s} D={dd} {name} "
+                                       f"h0={with_h0}", a, x, h0)[2])
+    if routes != {"chunked", "streaming"}:
+        raise AssertionError(f"rglru_scan: the cases took only {routes}")
+    # Extreme decays on the chunked route: products that underflow through
+    # the denormals to 0, decays near 1, decays a hair below 1 (no
+    # forgetting over 4096 steps: held against the float64 walk), and
+    # strong and faint decays side by side.
+    near0, hair = (lambda u: u * 1e-3), (lambda u: 1 - 1e-6 * u)
+    for label, fill, exact in (
+            ("a = 1e-3 u", near0, False), ("a = 1e-20", lambda u: u * 0 + 1e-20, False),
+            ("a = 0.99 + 0.01 u", lambda u: 0.99 + 0.01 * u, False),
+            ("a = 1 - 1e-6 u", hair, True),
+            ("mixed", lambda u: torch.where(torch.arange(u.shape[-1], device="cuda") % 2 == 0,
+                                            near0(u), hair(u)), True)):
+        a, x, h0 = rglru_inputs(torch, gen, 1, RGEMMA_TRAIN_SEQ, 520, f32, True)
+        a = fill(torch.rand(a.shape, generator=gen, device="cuda")).contiguous()
+        rglru_check(torch, f"rglru_scan extreme decays {label} B=1 S={RGEMMA_TRAIN_SEQ} D=520",
+                    a, x, h0, exact=exact)
+
+    prev = lambda *x: rk.previous_design(*x)  # noqa: E731
+    run = lambda *x: rk.rglru_scan(*x)  # noqa: E731
+    ms, previous_ms, bound_ms, bound_by, err, route = rglru_timed(torch, gen, bsz, PREFILL_SEQ,
+                                                                  d, run, prev)
+    t_ms, t_prev, t_bound, _, t_err, t_route = rglru_timed(torch, gen, 1, RGEMMA_TRAIN_SEQ, d,
+                                                           run, prev)
+    base = rglru_inputs(torch, gen, bsz, PREFILL_SEQ, d, f32, False)[:2]
+    plain_ms = time_ms(lambda *a: rk.rglru_scan_plain(*a), [base], iters=3, warmup=1)
+    del base
+    for tag, b_, s_, m, p_, bd, design in (
+            ("served", bsz, PREFILL_SEQ, ms, previous_ms, bound_ms, route),
+            ("train", 1, RGEMMA_TRAIN_SEQ, t_ms, t_prev, t_bound, t_route)):
+        log(f"rglru_scan timed {tag} B={b_} S={s_} D={d} f32 [{design}]: kernel {m:.4f} ms, "
+            f"previous design (streaming) {p_:.4f} ms (in turns, {p_ / m:.2f}x), bound {bd:.4f} "
+            f"ms by {bound_by}")
+    if not t_ms * 2 <= t_prev:
+        raise AssertionError(f"rglru_scan at the training shape: {t_ms:.4f} ms is not 2x faster "
+                             f"than its previous design's {t_prev:.4f} ms")
+    if not ms <= previous_ms * 1.03:
+        raise AssertionError(f"rglru_scan at the served shape: {ms:.4f} ms, slower than its "
+                             f"previous design's {previous_ms:.4f} ms beyond 3%")
     report.setdefault("rglru_scan", {}).update(
         name="rglru_scan", route="cuda", source="src/repro_torch/kernels/csrc/rglru.cu",
-        replaces="src/repro/kernels/rglru.py:94", max_abs_err=err, ms=ms,
+        replaces="src/repro/kernels/rglru.py:94", max_abs_err=max(err, t_err), ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        previous_ms=None,
+        previous_ms=previous_ms, train_ms=t_ms, train_previous_ms=t_prev, train_bound_ms=t_bound,
     )
-    log(f"rglru_scan timed B={bsz} S={s} D={d} f32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes); "
-        f"no single library call")
+    log(f"rglru_scan plain at B={bsz} S={PREFILL_SEQ} D={d}: {plain_ms:.4f} ms; no single "
+        f"library call")
 
 
 def phase_model(torch, mid, n_layers, **overrides):
@@ -2799,15 +2917,25 @@ def wkv6_bwd_case(torch, gen, b, s, dtype, w_dtype, with_state, with_d_state=Tru
     return args, err
 
 
-def rglru_bwd_case(torch, gen, b, s, d, dtype, with_h0, with_d_last=True):
+def rglru_bwd_case(torch, gen, b, s, d, dtype, with_h0, with_d_last=True, a=None,
+                   exact=False):
     """rglru_bwd against autograd through the plain forward
     (``ref.rglru_ref``), cotangents on h and (with ``with_d_last``) the last
     h, the kernel reading h_{t-1} from the forward kernel's output; two
-    calls torch.equal. Returns (the kernel's arguments, max abs err)."""
+    calls torch.equal. In float32 it is also bit for bit its route's plain
+    twin (``rglru_bwd_plain`` streaming, ``rglru_bwd_chunked_plain``
+    chunked) and, chunked, within 2e-5 of the sequential one. ``a``
+    replaces the drawn decays. With ``exact`` (decays a hair below 1) the
+    oracle is the plain backward in float64 on the same h: the kernel no
+    further from it than the float32 sequential backward, within 2e-5
+    (``float64_departure``). Returns (the kernel's arguments, max abs err,
+    or the float64 departure)."""
     from repro_torch.kernels import rglru as rk
     from repro_torch.kernels import rglru_bwd as rb
+    from repro_torch.kernels.ref import rglru_bwd_chunked_plain
 
-    a, x, h0 = rglru_inputs(torch, gen, b, s, d, dtype, with_h0)
+    drawn, x, h0 = rglru_inputs(torch, gen, b, s, d, dtype, with_h0)
+    a = drawn if a is None else a.to(dtype)
     dh = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
     dlast = torch.randn((b, d), generator=gen, device="cuda") if with_d_last else None
     leaves = [a.clone().requires_grad_(), x.clone().requires_grad_()]
@@ -2820,16 +2948,98 @@ def rglru_bwd_case(torch, gen, b, s, d, dtype, with_h0, with_d_last=True):
     args = (a, h, dh, dlast, h0)
     got = rb.rglru_bwd(*args)
     again = rb.rglru_bwd(*args)
+    plan = rk.route(a)
+    twin = (rb.rglru_bwd_plain(*args) if plan is None
+            else rglru_bwd_chunked_plain(*args, chunk=plan[0]))
     torch.cuda.synchronize()
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-    label = f"rglru bwd B={b} S={s} D={d} {name} h0={with_h0} d_last={with_d_last}"
+    route = "streaming" if plan is None else f"chunked L={plan[0]} n={plan[1]}"
+    label = f"rglru bwd B={b} S={s} D={d} {name} h0={with_h0} d_last={with_d_last} [{route}]"
     err = 0.0
-    for g_name, g, a_, wnt in zip(("da", "db", "dh0"), got, again, want):
+    for g_name, g, a_, tw in zip(("da", "db", "dh0"), got, again, twin):
         if not torch.equal(g, a_):
             raise AssertionError(f"{label}: two calls differ in {g_name}")
+        if name == "float32" and not torch.equal(g, tw):
+            raise AssertionError(f"{label}: {g_name} not bit for bit its route's plain twin")
+    if exact:
+        w64 = rb.rglru_bwd_plain(*(None if t is None else t.double() for t in args))
+        seq = rb.rglru_bwd_plain(*args)
+        for g_name, g, sq, w in zip(("da", "db", "dh0"), got, seq, w64):
+            dep, dep_seq = float64_departure(g, w), float64_departure(sq, w)
+            if not dep <= dep_seq + TOL[name]:
+                raise AssertionError(f"{label} {g_name}: {dep:.3e} from the float64 backward, "
+                                     f"the float32 sequential one {dep_seq:.3e}")
+            log(f"{label} {g_name}: from the float64 backward {dep:.3e} (the float32 "
+                f"sequential one {dep_seq:.3e}), two calls equal")
+            err = max(err, dep)
+        return args, err
+    for g_name, g, wnt in zip(("da", "db", "dh0"), got, want):
         err = max(err, assert_close(f"{label} {g_name}", g, wnt, TOL[name]))
+    if plan is not None:
+        seq = rb.rglru_bwd_plain(*args)
+        for g_name, g, sq in zip(("da", "db", "dh0"), got, seq):
+            assert_close(f"{label} {g_name} (sequential twin)", g, sq, TOL[name])
     log(f"{label}: max_abs_err={err:.3e} against autograd through rglru_ref, two calls equal")
     return args, err
+
+
+def rglru_bwd_checks(torch, report):
+    """rglru_bwd on both routes (recurrentgemma-9b's training shape B = 1, S
+    = 4096, D = 4096 float32 without states as the step calls it; B = 2, S
+    = 1000 with states in both dtypes; ragged D = 520; the served batch's
+    B = 8, S = 512 streaming; extreme decays), then timed at the training
+    shape in turns with ``previous_design`` (the streaming kernel), each
+    design's launches apart (``launch_split``), beside its plain version
+    and its bound: a, h, dh read and da, db, dh0 written once."""
+    from repro_torch.kernels import rglru as rk
+    from repro_torch.kernels import rglru_bwd as rb
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    f32, bf16 = torch.float32, torch.bfloat16
+    bs, ss, d = 1, RGEMMA_TRAIN_SEQ, 4096
+    main, err_f32 = rglru_bwd_case(torch, gen, bs, ss, d, f32, False, with_d_last=False)
+    for b_, s_, d_, with_h0 in ((2, 1000, d, True), (2, 1000, 520, True), (8, PREFILL_SEQ, d, True),
+                                (8, PREFILL_SEQ, d, False)):
+        err_f32 = max(err_f32, rglru_bwd_case(torch, gen, b_, s_, d_, f32, with_h0)[1])
+    err = rglru_bwd_case(torch, gen, 2, 1000, d, bf16, True)[1]
+    err = max(err, rglru_bwd_case(torch, gen, 8, PREFILL_SEQ, d, bf16, True)[1])
+    for label, fill, exact in (("a = 1e-3 u", lambda u: u * 1e-3, False),
+                               ("a = 0.99 + 0.01 u", lambda u: 0.99 + 0.01 * u, True),
+                               ("a = 1 - 1e-6 u", lambda u: 1 - 1e-6 * u, True)):
+        u = torch.rand((1, ss, 520), generator=gen, device="cuda")
+        log(f"rglru bwd extreme decays {label}:")
+        dep = rglru_bwd_case(torch, gen, 1, ss, 520, f32, True, a=fill(u), exact=exact)[1]
+        err_f32 = err_f32 if exact else max(err_f32, dep)
+    a, h_, dh, _, _ = main
+    inputs = copies((a, h_, dh), 3 * a.numel() * 4)
+    run_k, run_prev = (lambda *x: rb.rglru_bwd(*x)), (lambda *x: rb.previous_design(*x))
+    ms, previous_ms = in_turns(run_k, run_prev, inputs)
+    split = {name: launch_split(torch, fn, inputs)
+             for name, fn in (("kernel", run_k), ("previous", run_prev))}
+    plain_ms = time_ms(lambda *x: rb.rglru_bwd_plain(*x), inputs, iters=2, warmup=1)
+    nbytes = 5 * a.numel() * 4 + bs * d * 4  # a, h, dh read; da, db, dh0 written
+    flops = 3 * a.numel()
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    plan = rk.route(a)
+    log(f"rglru bwd timed B={bs} S={ss} D={d} float32 [chunked L={plan[0]} n={plan[1]}]: kernel "
+        f"{ms:.4f} ms, previous design (streaming) {previous_ms:.4f} ms (in turns, "
+        f"{previous_ms / ms:.2f}x), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({nbytes} bytes); no single library call")
+    for name, parts in split.items():
+        log(f"  {name} launches (torch.profiler, eager): " + ", ".join(
+            f"{k_} {v_:.4f} ms" for k_, v_ in parts.items()))
+    if not ms * 3 <= previous_ms:
+        raise AssertionError(f"rglru_bwd at the training shape: {ms:.4f} ms is not 3x faster "
+                             f"than its previous design's {previous_ms:.4f} ms")
+    report["rglru_bwd"] = dict(
+        name="rglru_bwd", route="cuda", source="src/repro_torch/kernels/csrc/rglru_bwd.cu",
+        replaces="src/repro/kernels/rglru.py:94", gradient_of="src/repro/models/recurrent.py:68",
+        max_abs_err=err_f32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, previous_ms=previous_ms, bf16_max_abs_err=err, split=split,
+        shape=f"B={bs} S={ss} D={d} float32")
+    del main, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def recurrence_backward_checks(torch, report):
@@ -2842,8 +3052,8 @@ def recurrence_backward_checks(torch, report):
     replays over copies past L2, beside its plain version (eager) and its
     bound: each input read and each output written once, and for wkv6 12 K
     V float32 flops a (b, h, step) (the state recomputed, G updated, four
-    products with G or S). No single PyTorch call computes either."""
-    from repro_torch.kernels import rglru_bwd as rb
+    products with G or S). No single PyTorch call computes either. The
+    rglru_bwd part is ``rglru_bwd_checks``."""
     from repro_torch.kernels import wkv6_bwd as wb
 
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -2893,29 +3103,7 @@ def recurrence_backward_checks(torch, report):
     gc.collect()
     torch.cuda.empty_cache()
 
-    bs, ss, d = 1, RGEMMA_TRAIN_SEQ, 4096
-    main, err_f32 = rglru_bwd_case(torch, gen, bs, ss, d, f32, False, with_d_last=False)
-    err_f32 = max(err_f32, rglru_bwd_case(torch, gen, 2, 1000, d, f32, True)[1])
-    err = rglru_bwd_case(torch, gen, 2, 1000, d, bf16, True)[1]
-    a, h_, dh, _, _ = main
-    inputs = copies((a, h_, dh), 3 * a.numel() * 4)
-    ms = device_ms(lambda *x: rb.rglru_bwd(*x), inputs)
-    plain_ms = time_ms(lambda *x: rb.rglru_bwd_plain(*x), inputs, iters=2, warmup=1)
-    nbytes = 5 * a.numel() * 4 + bs * d * 4  # a, h, dh read; da, db, dh0 written
-    flops = 3 * a.numel()
-    bound_ms, bound_by = bound(nbytes, flops, "float32")
-    log(f"rglru bwd timed B={bs} S={ss} D={d} float32: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes); no single "
-        f"library call")
-    report["rglru_bwd"] = dict(
-        name="rglru_bwd", route="cuda", source="src/repro_torch/kernels/csrc/rglru_bwd.cu",
-        replaces="src/repro/kernels/rglru.py:94", gradient_of="src/repro/models/recurrent.py:68",
-        max_abs_err=err_f32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, previous_ms=None, bf16_max_abs_err=err,
-        shape=f"B={bs} S={ss} D={d} float32")
-    del main, inputs
-    gc.collect()
-    torch.cuda.empty_cache()
+    rglru_bwd_checks(torch, report)
 
 
 def train_batch(torch, data, i):
@@ -3301,6 +3489,11 @@ def main() -> int:
                     "wkv6_bwd": "HMMA"}.get(name)
             if need and counts[need] < 1:
                 raise AssertionError(f"{name}: no {need} in its SASS")
+            if name in ("rglru", "rglru_bwd"):
+                missing = [k for k in ("summary_kernel", "carry_kernel", "finish_kernel")
+                           if k not in text]
+                if missing:
+                    raise AssertionError(f"{name}: chunked route kernels {missing} not built")
             if name == "flash_attention_bwd":
                 spills = wgmma_spills(text)
                 log(f"  wgmma kernels of {name}: {json.dumps(spills)}")
@@ -3354,6 +3547,7 @@ def main() -> int:
     names = ("decode_attention", "flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
              "rglru_scan", "rglru_bwd")
     extra = ("b1_ms", "b1_previous_ms", "b1_bound_ms", "decode_ms", "decode_previous_ms",
+             "train_ms", "train_previous_ms", "train_bound_ms",
              "decode_bound_ms", "gradient_of", "f32_max_abs_err", "bf16_max_abs_err", "shape",
              "shapes")
     rows = [{k: report[n][k] for k in keys + extra if k in keys or k in report[n]}

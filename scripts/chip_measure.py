@@ -6,6 +6,8 @@
                                               # launches, timed apart
   python3 scripts/chip_measure.py wkv6_bwd    # the recurrences' backward
                                               # checks and times alone
+  python3 scripts/chip_measure.py rglru       # rglru_scan / rglru_bwd: checks,
+                                              # times, both routes by shape
 
 ``faults N`` builds the kernels once, then runs chip_smoke.py's phase
 ``faults`` N times in this process and prints one line per run (passed,
@@ -23,6 +25,15 @@ kernel against its plain version.
 ``wkv6_bwd`` runs chip_smoke.py's checks and timings of the two
 recurrences' backward kernels alone (``recurrence_backward_checks``:
 wkv6_bwd at B = 8 and B = 1 in turns with its sequential design).
+
+``rglru`` runs chip_smoke.py's checks and timings of rglru_scan and
+rglru_bwd alone (``rglru_kernel_checks``, ``rglru_bwd_checks``), then
+times both routes of each at B = 1, 2, 4, 8 and S = 512, 4096 (D = 4096,
+float32, no states; the chunked route with ``plan_chunks``' plan, forced
+where the rule picks streaming) in turns, each chunk length of
+``CHUNKS`` at the training shape, and recurrentgemma-9b's 12-layer train
+step (chip_smoke.py's ``train_full_width``) with the route rule and with
+every call streaming, in turns (route, streaming, streaming, route).
 
 Prints the card's name and power limit first. Needs a GPU; exits
 non-zero on any failure.
@@ -79,6 +90,68 @@ def bwd_split(torch) -> int:
     return 0
 
 
+def _routes(torch, fwd: bool, b: int, s: int, chunk=None):
+    """(chunked ms, streaming ms) of rglru_scan (``fwd``) or rglru_bwd at
+    (b, s, 4096) float32, in turns; ``chunk`` overrides the plan's."""
+    from repro_torch.kernels import rglru as rk
+    from repro_torch.kernels import rglru_bwd as rb
+    from repro_torch.kernels.decode_attention import _sm_count
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d = 4096
+    a, x, _ = cs.rglru_inputs(torch, gen, b, s, d, torch.float32, False)
+    l_, n = (rk.plan_chunks(b, s, d, _sm_count(a.device)) if chunk is None
+             else (chunk, -(-s // chunk)))
+    if fwd:
+        base = (a, x)
+        chunked = lambda *t: rk._launch(*t, None, (l_, n))  # noqa: E731
+        stream = lambda *t: rk._launch(*t, None, None)  # noqa: E731
+    else:
+        h = rk.previous_design(a, x)[0]
+        base = (a, h, x)  # x stands in for dh
+        chunked = lambda *t: rb._launch(*t, None, None, (l_, n))  # noqa: E731
+        stream = lambda *t: rb._launch(*t, None, None, None)  # noqa: E731
+    inputs = cs.copies(base, len(base) * a.numel() * 4)
+    out = cs.in_turns(chunked, stream, inputs)
+    del a, x, base, inputs
+    return out, (l_, n)
+
+
+def rglru(torch) -> int:
+    from repro_torch.kernels import rglru as rk
+    from repro_torch.kernels.decode_attention import _sm_count
+
+    report: dict = {}
+    cs.rglru_kernel_checks(torch, report)
+    cs.rglru_bwd_checks(torch, report)
+    sms = _sm_count(torch.device("cuda"))
+    for fwd, name in ((True, "rglru_scan"), (False, "rglru_bwd")):
+        for s in (512, cs.RGEMMA_TRAIN_SEQ):
+            for b in (1, 2, 4, 8):
+                (c_ms, s_ms), (l_, n) = _routes(torch, fwd, b, s)
+                rule = "chunked" if rk.uses_chunked(b, s, 4096, sms) else "streaming"
+                cs.log(f"{name} routes B={b} S={s} D=4096 f32: chunked (L={l_}, n={n}) "
+                       f"{c_ms:.4f} ms, streaming {s_ms:.4f} ms (in turns); rule: {rule}")
+        for chunk in rk.CHUNKS:
+            (c_ms, s_ms), _ = _routes(torch, fwd, 1, cs.RGEMMA_TRAIN_SEQ, chunk)
+            cs.log(f"{name} chunk length {chunk} at B=1 S={cs.RGEMMA_TRAIN_SEQ}: chunked "
+                   f"{c_ms:.4f} ms, streaming {s_ms:.4f} ms (in turns)")
+    steps = {"route": [], "streaming": []}
+    rule = rk.uses_chunked
+    for arm in ("route", "streaming", "streaming", "route"):
+        rk.uses_chunked = rule if arm == "route" else (lambda *a: False)
+        try:
+            out = {"rglru_bwd": {}}
+            cs.train_full_width(torch, out, cs.RGEMMA, cs.RGEMMA_TRAIN_LAYERS,
+                                cs.RGEMMA_TRAIN_BATCH, cs.RGEMMA_TRAIN_SEQ)
+        finally:
+            rk.uses_chunked = rule
+        steps[arm].append(out["train"][cs.RGEMMA]["median_step_ms"])
+    cs.log("recurrentgemma-9b x12 train step median ms (in turns): " + ", ".join(
+        f"{arm} {v}" for arm, v in steps.items()))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -100,6 +173,8 @@ def main() -> int:
     if what == "wkv6_bwd":
         cs.recurrence_backward_checks(torch, {})
         return 0
+    if what == "rglru":
+        return rglru(torch)
     raise SystemExit(f"chip_measure: unknown measurement {what!r}")
 
 

@@ -526,6 +526,99 @@ def rglru_bwd_plain(
     return da.to(a.dtype), db.to(a.dtype), carry
 
 
+def _chunk_walk(x: torch.Tensor, chunk: int, fill: float) -> torch.Tensor:
+    """(B, S, D) -> (B, n, chunk, D): the walk cut into chunks, the last
+    padded with ``fill`` (a step that leaves the recurrence as it is)."""
+    bsz, s, d = x.shape
+    n = -(-s // chunk)
+    pad = x.new_full((bsz, n * chunk - s, d), fill)
+    return torch.cat([x, pad], dim=1).reshape(bsz, n, chunk, d)
+
+
+def _chunk_carries(p: torch.Tensor, e: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """(B, n, D) carries entering each chunk: ``seed``, then P c + E."""
+    carries, carry = [], seed
+    for k in range(p.shape[1]):
+        carries.append(carry)
+        carry = p[:, k] * carry + e[:, k]
+    return torch.stack(carries, dim=1)
+
+
+def rglru_chunked_plain(
+    a: torch.Tensor,  # (B, S, D) decay in (0, 1)
+    b_in: torch.Tensor,  # (B, S, D) gated inputs
+    h0: Optional[torch.Tensor] = None,  # (B, D)
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rglru_ref``'s recurrence in the chunked kernel's association:
+    per chunk of ``chunk`` steps the product of its decays P (in time
+    order) and its end state E from zero; the h entering each chunk
+    (h0, then P c + E); then each chunk's walk from its carry. Each
+    product and sum rounded on its own, as the kernel's are. Returns (h
+    for every step in a's dtype, last h in float32; float64 for float64
+    inputs)."""
+    bsz, s, d = a.shape
+    acc = torch.promote_types(a.dtype, torch.float32)
+    af = _chunk_walk(a.to(acc), chunk, 1.0)
+    bf = _chunk_walk(b_in.to(acc), chunk, 0.0)
+    n = af.shape[1]
+    p = torch.ones((bsz, n, d), dtype=acc, device=a.device)
+    e = torch.zeros_like(p)
+    for t in range(chunk):
+        p = p * af[:, :, t]
+        e = af[:, :, t] * e + bf[:, :, t]
+    seed = torch.zeros((bsz, d), dtype=acc, device=a.device) if h0 is None else h0.to(acc)
+    h = _chunk_carries(p, e, seed)
+    hs = torch.empty_like(af)
+    for t in range(chunk):
+        h = af[:, :, t] * h + bf[:, :, t]
+        hs[:, :, t] = h
+    hs = hs.reshape(bsz, n * chunk, d)[:, :s]
+    return hs.to(a.dtype), hs[:, -1]
+
+
+def rglru_bwd_chunked_plain(
+    a: torch.Tensor,  # (B, S, D) the forward's decay
+    h: torch.Tensor,  # (B, S, D) the forward's output
+    dh: torch.Tensor,  # (B, S, D) the gradient of h
+    dh_last: Optional[torch.Tensor] = None,  # (B, D) the gradient of the last h
+    h0: Optional[torch.Tensor] = None,  # (B, D) the forward's initial h
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``rglru_bwd_plain``'s reverse-time recurrence in the chunked
+    backward kernel's association. Time is walked from the last step,
+    cut into chunks of ``chunk`` steps from there (the ragged chunk
+    reaches t = 0); the carry c (the gradient h_t receives from step t +
+    1) obeys c <- a_t (dh_t + c), so per walk chunk P is the product of
+    its decays in walk order and E its outgoing carry from zero; the
+    carry entering each walk chunk (dh_last, then P c + E); then each
+    chunk's walk from its carry writing db = g and da = g h_{t-1}.
+    Returns (da, db in a's dtype, dh0 in float32; float64 for float64
+    inputs)."""
+    bsz, s, d = a.shape
+    acc = torch.promote_types(a.dtype, torch.float32)
+    zeros = torch.zeros((bsz, d), dtype=acc, device=a.device)
+    prev = torch.cat([(zeros if h0 is None else h0.to(acc))[:, None], h.to(acc)[:, :-1]], dim=1)
+    ar = _chunk_walk(a.to(acc).flip(1), chunk, 1.0)
+    gr = _chunk_walk(dh.to(acc).flip(1), chunk, 0.0)
+    pr = _chunk_walk(prev.flip(1), chunk, 0.0)
+    n = ar.shape[1]
+    p = torch.ones((bsz, n, d), dtype=acc, device=a.device)
+    e = torch.zeros_like(p)
+    for u in range(chunk):
+        p = p * ar[:, :, u]
+        e = ar[:, :, u] * (gr[:, :, u] + e)
+    carry = _chunk_carries(p, e, zeros if dh_last is None else dh_last.to(acc))
+    da, db = torch.empty_like(ar), torch.empty_like(ar)
+    for u in range(chunk):
+        g = gr[:, :, u] + carry
+        db[:, :, u] = g
+        da[:, :, u] = g * pr[:, :, u]
+        carry = ar[:, :, u] * g
+    back = lambda x: x.reshape(bsz, n * chunk, d)[:, :s].flip(1).to(a.dtype)  # noqa: E731
+    return back(da), back(db), carry[:, -1]
+
+
 def wkv6_bwd_plain(
     r: torch.Tensor,  # (B, S, H, K)
     k: torch.Tensor,  # (B, S, H, K)

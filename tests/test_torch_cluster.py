@@ -482,25 +482,43 @@ def _watchdog_run(core, build, **kw):
     return cluster, slices, sessions
 
 
+def _watchdog_seen(cluster, slices, sessions=()):
+    """What a watchdog run did, for the assertions' messages: s0's
+    transitions and reasons, each session's slice and state, the parked
+    tails and the survivor's decode builds and leases."""
+    surv = slices["s1"]
+    return {
+        "s0": [(o, w, r) for _t, n, o, w, r in cluster.health.transitions if n == "s0"],
+        "s1": [(o, w, r) for _t, n, o, w, r in cluster.health.transitions if n == "s1"],
+        "sessions": [(s.slice_name, s.state) for s in sessions],
+        "parked": sorted(cluster.parked),
+        "survivor": {"decode_compiles": surv.engine.stats["decode_compiles"],
+                     "leases": dict(surv.leases), "health": surv.health},
+    }
+
+
 def test_live_watchdog_quarantines_the_wedged_slice_like_jax():
-    jcluster, jslices, _ = _watchdog_run(J, jbuild, cfg=jtiny(MID))
+    jcluster, jslices, jsessions = _watchdog_run(J, jbuild, cfg=jtiny(MID))
     cluster, slices, sessions = _watchdog_run(P, tbuild, cfg=tiny(MID), device="cpu",
                                               params=_converted(jslices))
-    assert slices["s0"].health == P.QUARANTINED and not slices["s0"].alive
+    seen = _watchdog_seen(cluster, slices, sessions)
+    jseen = _watchdog_seen(jcluster, jslices, jsessions)
+    assert slices["s0"].health == P.QUARANTINED and not slices["s0"].alive, seen
     reasons = [r for _, n, _, new, r in cluster.health.transitions
                if n == "s0" and new == P.QUARANTINED]
-    assert reasons and "hung" in reasons[0]
+    assert reasons and "hung" in reasons[0], seen
     inner = slices["s0"].device.inner
-    assert inner.wedged and inner.closed
+    assert inner.wedged and inner.closed, seen
     # The wedged slice ends as the reference's does; which slice each
     # stream lands on follows the slices' own profiled WCETs, so the
     # sessions are held to the reference's rule.
-    for cl in (cluster, jcluster):
+    for cl, what in ((cluster, seen), (jcluster, jseen)):
         last = [(w, r) for _t, n, _o, w, r in cl.health.transitions if n == "s0"][-1]
-        assert last[0] == P.QUARANTINED and "hung" in last[1]
-    assert any(s.slice_name == "s0" for s in sessions)
-    assert all(s.state == ("failover" if s.slice_name == "s0" else "active") for s in sessions)
-    assert all(s.conserved() for s in sessions)
-    assert _conserved(cluster) and cluster.parked == {}
+        assert last[0] == P.QUARANTINED and "hung" in last[1], what
+    assert any(s.slice_name == "s0" for s in sessions), seen
+    assert all(s.state == ("failover" if s.slice_name == "s0" else "active")
+               for s in sessions), seen
+    assert all(s.conserved() for s in sessions), seen
+    assert _conserved(cluster) and cluster.parked == {}, seen
     surv = slices["s1"]
-    assert surv.engine.stats["decode_compiles"] == 0 and surv.leases == {}
+    assert surv.engine.stats["decode_compiles"] == 0 and surv.leases == {}, seen

@@ -333,10 +333,18 @@ def test_wkv6_dispatch_and_repeats_on_card(cuda, s, dtype, w_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 8, 16), (2, 90, 48), (1, 256, 128), (3, 37, 520),
-                                   (8, 1, 4096)])
+                                   (8, 1, 4096), (8, 512, 4096), (1, 4096, 4096),
+                                   (2, 1000, 520)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_rglru_kernel_matches_plain_on_card(cuda, shape, dtype, with_h0):
+    """The forward against the sequential plain version at the dtype's
+    tolerance; in float32 bit for bit its route's plain twin (the
+    sequential walk streaming, ``rglru_chunked_plain`` chunked); two calls
+    torch.equal; one launch counted a call."""
+    from repro_torch.kernels import rglru as rk
+    from repro_torch.kernels.ref import rglru_chunked_plain
+
     b, s, d = shape
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     a = (torch.sigmoid(torch.randn(shape, generator=g, device=cuda)) * 0.5 + 0.45).to(dtype)
@@ -344,16 +352,49 @@ def test_rglru_kernel_matches_plain_on_card(cuda, shape, dtype, with_h0):
     h0 = torch.randn((b, d), generator=g, device=cuda) if with_h0 else None
     before = ops.launch_counts()["rglru_scan"]
     out, last = ops.rglru_scan(a, x, h0)
+    again, again_last = ops.rglru_scan(a, x, h0)
     want, want_last = rglru_scan_plain(a, x, h0)
+    assert torch.equal(out, again) and torch.equal(last, again_last)
     # Multiply and add are rounded separately, as in the plain version:
-    # float32 agrees bit for bit, bf16 outputs differ by at most rounding.
+    # float32 agrees bit for bit with the route's twin (the chunked route's
+    # carries round apart from the sequential walk), bf16 outputs differ
+    # by at most rounding.
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(last, want_last, atol=TOL[dtype], rtol=TOL[dtype])
+    plan = rk.route(a)
+    if plan is not None:
+        want, want_last = rglru_chunked_plain(a, x, h0, plan[0])
     if dtype == torch.float32:
         assert torch.equal(out, want) and torch.equal(last, want_last)
-    assert ops.launch_counts()["rglru_scan"] == before + 1
+    assert ops.launch_counts()["rglru_scan"] == before + 2
     with pytest.raises(TypeError, match="dtype"):
         ops.rglru_scan(a, x, torch.zeros((b, d), dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.cuda
+def test_rglru_routes_on_card(cuda):
+    """The route rule on this card: the served prefill (8 x 512 x 4096)
+    and a decode step take the streaming route, the training shape (1 x
+    4096 x 4096) the chunked one; and ``previous_design`` of either kernel (the streaming one) launches
+    uncounted, bit for bit the sequential plain versions."""
+    from repro_torch.kernels import rglru as rk
+    from repro_torch.kernels import rglru_bwd as rb
+
+    assert rk.route(torch.empty((8, 512, 4096), device=cuda)) is None
+    assert rk.route(torch.empty((8, 1, 4096), device=cuda)) is None
+    assert rk.route(torch.empty((1, 4096, 4096), device=cuda)) is not None
+    g = torch.Generator(device=cuda).manual_seed(5)
+    shape = (1, 1000, 520)
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=cuda))
+    x, dh = (torch.randn(shape, generator=g, device=cuda) for _ in range(2))
+    assert rk.route(a) is not None
+    before = ops.launch_counts()
+    h, last = rk.previous_design(a, x)
+    grads = rb.previous_design(a, h, dh)
+    assert ops.launch_counts() == before
+    want, want_last = rglru_scan_plain(a, x)
+    assert torch.equal(h, want) and torch.equal(last, want_last)
+    assert all(torch.equal(gt, pt) for gt, pt in zip(grads, rb.rglru_bwd_plain(a, h, dh)))
 
 
 @pytest.mark.cuda
@@ -1131,15 +1172,20 @@ def test_wkv6_backward_chunked_design_on_card(cuda, s, w_dtype, with_state):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1, 16), (2, 37, 48), (1, 256, 128), (3, 509, 520)])
+@pytest.mark.parametrize("shape", [(1, 1, 16), (2, 37, 48), (1, 256, 128), (3, 509, 520),
+                                   (8, 512, 4096), (1, 4096, 4096), (2, 1000, 520)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_rglru_backward_kernel_on_card(cuda, shape, dtype, with_h0):
     """The backward kernel against autograd through the plain forward
     (``rglru_ref``), cotangents on h and the last h: float32 at 2e-5, bf16
     at 2e-2 (the kernel reads h_{t-1} from the bf16 output); float32 is
-    the plain backward's bit for bit; two calls torch.equal."""
+    bit for bit its route's plain backward (``rglru_bwd_plain`` streaming,
+    ``rglru_bwd_chunked_plain`` chunked, which is also held at 2e-5 to the
+    sequential one); two calls torch.equal."""
+    from repro_torch.kernels import rglru as rk
     from repro_torch.kernels import rglru_bwd as rb
+    from repro_torch.kernels.ref import rglru_bwd_chunked_plain
 
     b, s, d = shape
     g = torch.Generator(device=cuda).manual_seed(sum(shape) + with_h0)
@@ -1159,8 +1205,14 @@ def test_rglru_backward_kernel_on_card(cuda, shape, dtype, with_h0):
     for name, gt, ag, wt in zip(("da", "db", "dh0"), got, again, want):
         assert gt.dtype == wt.dtype and torch.equal(gt, ag), name
         torch.testing.assert_close(gt.float(), wt.float(), atol=tol, rtol=tol, msg=name)
+    plan = rk.route(a)
+    if plan is not None:
+        seq = rb.rglru_bwd_plain(a, h, dh, dlast, h0)
+        for name, gt, sq in zip(("da", "db", "dh0"), got, seq):
+            torch.testing.assert_close(gt.float(), sq.float(), atol=tol, rtol=tol, msg=name)
     if dtype == torch.float32:
-        plain = rb.rglru_bwd_plain(a, h, dh, dlast, h0)
+        plain = (rb.rglru_bwd_plain(a, h, dh, dlast, h0) if plan is None
+                 else rglru_bwd_chunked_plain(a, h, dh, dlast, h0, chunk=plan[0]))
         assert all(torch.equal(gt, pt) for gt, pt in zip(got, plain))
 
 
