@@ -146,7 +146,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              on them and 32 decode steps at the default mrope_position,
              kernel against dense; on text-only positions, decode against
              the teacher-forced forward.
-16. train — training, the slice's main path. (a) The flash backward
+16. train — training. (a) The flash backward
              kernel against its plain version on the kernel's own O and
              LSE (and the forward's LSE against its plain one), two calls
              torch.equal: granite-3-2b's training shape (B = 8, S = 1024,
@@ -197,7 +197,25 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              deterministic algorithms on); the launcher
              (`python -m repro_torch.launch.train --tiny`) crashing at step
              7 and resuming from step 5, its final state digest equal to
-             a straight run's.
+             a straight run's; the launcher trains on the (1, 1) host mesh.
+17. sharding — the host mesh (`launch/mesh.make_host_mesh`: (1, 1)
+             ("data", "model") over cuda:0 on NCCL); granite-3-2b at full
+             width (40 layers, TRAIN_BATCH x TRAIN_SEQ, remat on) takes 3
+             AdamW steps unmeshed and 3 on the mesh (state laid out by
+             shardings_for_state, the batch by batch_sharding, the
+             activation resolver installed) from the same seed-0 state,
+             deterministic algorithms on: every loss and every state leaf
+             equal bit for bit, flash forward and backward launches a
+             step the same (80 and 40) in both; logs both arms' step ms.
+             mixtral-8x7b at full width, 2 layers: one forward with
+             set_moe_mesh(host mesh) through MoE's local path (its calls
+             counted) against the global path, logits and aux bit for
+             bit. Then the dry run in subprocesses on the CPU
+             (`python -m repro_torch.launch.dryrun`, fake groups of 256 and
+             512 ranks, fake tensors): granite-3-2b train_4k on both meshes
+             and llama4-maverick-400b-a17b decode_32k with --opt moe_local,
+             every cell OK; logs each cell's per-rank bytes, roofline terms
+             (reckoned from the H100's rates, not measured) and seconds.
 
 Each serving phase sets the kernel launch counts to 0 before it serves
 and reads them after, and fails unless every kernel of its path
@@ -1607,9 +1625,11 @@ def phase_faults(torch):
     stall_t = next(t for _i, kind, t in dead.device.injected if kind == STALL)
     detect_s = quarantines[0][0] - stall_t
     throttled = [(o, n_) for _t, n, o, n_, _r in cluster.health.transitions if n == "slice1"]
+    slow = slices["slice1"].device
     if not slices["slice1"].alive or not throttled:
         raise AssertionError(f"faults: throttled slice1 transitions {throttled}, alive "
-                             f"{slices['slice1'].alive}")
+                             f"{slices['slice1'].alive}, submits {slow.submits}, "
+                             f"injected {slow.injected}")
     agg = check_conserved(cluster, "faults")
     ledgers = check_accounted(cluster, victims, "faults")
     check_survivors(slices, "slice0", "faults")
@@ -1624,6 +1644,7 @@ def phase_faults(torch):
                                 for t, n, o, w, r in cluster.health.transitions],
                    reprofiles=dict(cluster.health.reprofiles), launches=used,
                    wedged_waiter=dead.device.inner.wedged,
+                   throttled_submits=[i for i, _k, _t in slow.injected],
                    session_states=[s.state for s in sessions])
     summary["peak_mem_bytes"] = close_cluster(torch, cluster, slices)
     log(f"faults: stall to quarantine {detect_s * 1e3:.3f} ms; " + json.dumps(summary,
@@ -3417,14 +3438,17 @@ def train_launcher_drill(torch):
     r3 = run(["--ckpt-dir", str(dirs[1])])
     if r3.returncode != 0:
         raise AssertionError(f"launcher: straight run failed: {r3.stderr[-1500:]}")
+    mesh_line = "mesh {'data': 1, 'model': 1} on cuda"
+    if any(mesh_line not in r.stdout for r in (r2, r3)):
+        raise AssertionError(f"launcher: not trained on the host mesh ({mesh_line!r} missing)")
     digest = lambda out: [ln for ln in out.splitlines() if ln.startswith("final state digest")]
     for d in dirs:
         shutil.rmtree(d, ignore_errors=True)
     if len(digest(r2.stdout)) != 1 or digest(r2.stdout) != digest(r3.stdout):
         raise AssertionError(f"launcher: resumed {digest(r2.stdout)} != straight "
                              f"{digest(r3.stdout)}")
-    log("launcher drill on the card: crashed at step 7, resumed from step 5, finished, its "
-        "final state digest equal to a straight run's\n  "
+    log("launcher drill on the card, on the (1, 1) host mesh: crashed at step 7, resumed from "
+        "step 5, finished, its final state digest equal to a straight run's\n  "
         + "\n  ".join(r2.stdout.strip().splitlines()[-4:]))
 
 
@@ -3437,6 +3461,214 @@ def phase_train(torch, report):
                      RGEMMA_TRAIN_SEQ)
     train_two_layers(torch, report)
     train_launcher_drill(torch)
+
+# The sharding phase: the host mesh, the meshed train step against the
+# unmeshed one, MoE's local path, and two dry-run cells.
+SHARD_TRAIN_STEPS = 3
+SHARD_MOE_LAYERS = 2
+SHARD_MOE_BATCH, SHARD_MOE_SEQ = 8, 512
+DRYRUN_CELLS = (
+    ["--arch", MID, "--shape", "train_4k", "--mesh", "both"],
+    ["--arch", "llama4-maverick-400b-a17b", "--shape", "decode_32k", "--opt", "moe_local"],
+)
+DRYRUN_TIMEOUT_S = 420
+
+
+def sharded_train_arm(torch, mesh, meshed: bool):
+    """SHARD_TRAIN_STEPS AdamW steps of full-width granite-3-2b (40 layers,
+    TRAIN_BATCH x TRAIN_SEQ, remat on) from the seed-0 state: on the host
+    mesh (state laid out by shardings_for_state, the batch by
+    batch_sharding, the resolver installed) or unmeshed. Returns (losses,
+    step ms, launches per step, the final state as full tensors)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_for
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+
+    cfg = get_config(MID)
+    model = model_for(cfg)
+    tcfg = train_loop.TrainConfig(adamw=opt.AdamWConfig(
+        peak_lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    state = train_loop.init_state(model, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    if meshed:
+        state = train_loop.place_state(state, train_loop.shardings_for_state(model, mesh))
+        shd.install_activation_resolver(mesh)
+    step = train_loop.make_train_step(model, tcfg)
+    losses, times, launches = [], [], []
+    try:
+        for i in range(SHARD_TRAIN_STEPS):
+            batch = train_batch(torch, data, i)
+            if meshed:
+                batch = train_loop.place_batch(batch, mesh)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches.append(ops.launch_counts())
+    finally:
+        shd.clear_activation_resolver()
+    return losses, times, launches, train_loop.full_state(state), cfg
+
+
+def sharded_train(torch, mesh, report):
+    """The meshed train step against the unmeshed one from one initial state
+    (deterministic algorithms on in both): every loss and every state leaf
+    equal bit for bit (a (1, 1) mesh moves nothing), flash forward and
+    backward launches per step equal and as expected; logs both arms'
+    step ms."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain_losses, plain_ms, plain_launches, plain_state, cfg = sharded_train_arm(
+            torch, mesh, meshed=False)
+        want = [t.detach().cpu() for t in _leaves(plain_state)]
+        del plain_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_losses, mesh_ms, mesh_launches, mesh_state, _ = sharded_train_arm(
+            torch, mesh, meshed=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = list(_leaves(mesh_state))
+    unequal = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach()
+        if g.dtype != w.dtype or tuple(g.shape) != tuple(w.shape):
+            raise AssertionError(f"sharding: leaf {i} is {g.dtype} {tuple(g.shape)}, unmeshed "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        wc = w.to("cuda")
+        if not torch.equal(g, wc):
+            unequal[i] = float((g.float() - wc.float()).abs().max())
+        del wc
+    log(f"sharding: granite-3-2b x{cfg.n_layers} full width, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{SHARD_TRAIN_STEPS} steps; losses meshed {json.dumps(mesh_losses)} unmeshed "
+        f"{json.dumps(plain_losses)}; step ms meshed {json.dumps(mesh_ms)} unmeshed "
+        f"{json.dumps(plain_ms)}; {len(got)} state leaves, {len(unequal)} not bit-equal "
+        f"{json.dumps(unequal)}")
+    if mesh_losses != plain_losses or unequal:
+        raise AssertionError(f"sharding: the meshed steps are not the unmeshed ones bit for "
+                             f"bit: losses {mesh_losses} vs {plain_losses}, leaves {unequal}")
+    expected = expected_train_launches(cfg)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        per_mesh = [c[name] for c in mesh_launches]
+        per_plain = [c[name] for c in plain_launches]
+        if per_mesh != per_plain or any(n != expected[name] for n in per_mesh):
+            raise AssertionError(f"sharding: {name} launches per step meshed {per_mesh}, "
+                                 f"unmeshed {per_plain}, expected {expected[name]}")
+    med = lambda xs: sorted(xs[1:])[len(xs[1:]) // 2]
+    log(f"sharding: launches per step meshed {json.dumps(mesh_launches[-1])}; median step "
+        f"after the first, meshed {med(mesh_ms):.3f} ms, unmeshed {med(plain_ms):.3f} ms")
+    report["sharding"] = dict(losses=mesh_losses, unmeshed_losses=plain_losses,
+                              meshed_step_ms=mesh_ms, unmeshed_step_ms=plain_ms,
+                              launches=mesh_launches, bit_equal=not unequal)
+
+
+def mixtral_local_moe(torch, mesh, report):
+    """mixtral-8x7b at full width, SHARD_MOE_LAYERS layers, bf16: one forward
+    with set_moe_mesh(host mesh), through MoE's local path (counted), against
+    the global path; the logits and the aux loss equal bit for bit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model_for, moe, sharding_hooks
+
+    cfg = get_config(MIXTRAL, n_layers=SHARD_MOE_LAYERS)
+    model = model_for(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (SHARD_MOE_BATCH, SHARD_MOE_SEQ), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        want, want_aux = model.forward(params, tokens)
+        moe.local_calls = 0
+        sharding_hooks.set_moe_mesh(mesh)
+        try:
+            got, got_aux = model.forward(params, tokens)
+        finally:
+            sharding_hooks.clear_moe_mesh()
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+    n_moe = sum(kind in ("attn", "swa") for kind in kinds)
+    calls = moe.local_calls
+    log(f"sharding: mixtral-8x7b x{cfg.n_layers} full width, {SHARD_MOE_BATCH} x "
+        f"{SHARD_MOE_SEQ}: local path calls {calls}; logits bit-equal "
+        f"{torch.equal(got, want)}, aux {float(got_aux)} vs global {float(want_aux)}")
+    if calls != n_moe:
+        raise AssertionError(f"sharding: MoE's local path ran {calls} times, expected {n_moe}")
+    if not torch.equal(got, want) or not torch.equal(got_aux, want_aux):
+        raise AssertionError(
+            f"sharding: mixtral local path != global path: logits max diff "
+            f"{float((got - want).abs().max())}, aux {float(got_aux)} vs {float(want_aux)}")
+    report.setdefault("sharding", {})["moe_local_calls"] = calls
+    del params
+
+
+def dryrun_cells(torch, report):
+    """The dry run (python -m repro_torch.launch.dryrun) on DRYRUN_CELLS, each
+    in a subprocess on the CPU over a fake group: every cell OK; prints each
+    cell's per-rank bytes, roofline terms and seconds."""
+    import shutil
+
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    cells = []
+    for args in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                            "--out", str(out)], capture_output=True, text=True, env=env,
+                           cwd=str(ROOT), timeout=DRYRUN_TIMEOUT_S)
+        dt = time.perf_counter() - t0
+        for ln in r.stdout.splitlines():
+            if ln.startswith(("OK", "FAIL")):
+                log(f"dryrun {ln}")
+        log(f"dryrun {' '.join(args)}: exit {r.returncode} in {dt:.3f} s")
+        if r.returncode != 0:
+            raise AssertionError(f"dryrun {' '.join(args)} failed: {r.stdout[-1500:]} "
+                                 f"{r.stderr[-2500:]}")
+    for path in sorted(out.glob("*.json")):
+        c = json.loads(path.read_text())
+        r = c["roofline"]
+        m = c["memory_analysis"]
+        cells.append(c)
+        log(f"dryrun cell {path.stem}: ok={c['ok']} args/rank {m['argument_size_in_bytes']} B, "
+            f"outputs/rank {m['output_size_in_bytes']} B; compute {r['compute_s']:.6e} s, "
+            f"memory {r['memory_s']:.6e} s, collective {r['collective_s']:.6e} s, dominant "
+            f"{r['dominant']}; collectives {json.dumps(c['counts']['collectives']['calls'])}; "
+            f"run {c['run_s']} s (reckoned from the H100's rates, not measured)")
+    if len(cells) != 3 or not all(c["ok"] for c in cells):
+        raise AssertionError(f"dryrun: expected 3 OK cells, got "
+                             f"{[(c['arch'], c['mesh'], c['ok']) for c in cells]}")
+    shutil.rmtree(out, ignore_errors=True)
+    report.setdefault("sharding", {})["dryrun"] = [
+        {k: c[k] for k in ("arch", "shape", "mesh", "opt", "ok", "run_s")} for c in cells]
+
+
+def phase_sharding(torch, report):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import destroy_process_group, make_host_mesh
+
+    mesh = make_host_mesh()
+    try:
+        log(f"sharding: host mesh {mesh} on backend {dist.get_backend()}, "
+            f"{dist.get_world_size()} rank(s)")
+        if dist.get_backend() != "nccl" or tuple(mesh.mesh.shape) != (1, 1):
+            raise AssertionError(f"sharding: expected a (1, 1) NCCL mesh, got {mesh} on "
+                                 f"{dist.get_backend()}")
+        sharded_train(torch, mesh, report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mixtral_local_moe(torch, mesh, report)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        destroy_process_group()
+    dryrun_cells(torch, report)
 
 
 def _leaves(tree):
@@ -3541,6 +3773,8 @@ def main() -> int:
         phase_mrope(torch, report)
     with Phase("train"):
         phase_train(torch, report)
+    with Phase("sharding"):
+        phase_sharding(torch, report)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")

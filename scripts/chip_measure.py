@@ -8,6 +8,9 @@
                                               # checks and times alone
   python3 scripts/chip_measure.py rglru       # rglru_scan / rglru_bwd: checks,
                                               # times, both routes by shape
+  python3 scripts/chip_measure.py sharding    # chip_smoke.py's phase sharding
+  python3 scripts/chip_measure.py dryrun OUT  # every dry-run cell, both meshes,
+                                              # JSON under OUT, the table printed
 
 ``faults N`` builds the kernels once, then runs chip_smoke.py's phase
 ``faults`` N times in this process and prints one line per run (passed,
@@ -34,6 +37,20 @@ where the rule picks streaming) in turns, each chunk length of
 ``CHUNKS`` at the training shape, and recurrentgemma-9b's 12-layer train
 step (chip_smoke.py's ``train_full_width``) with the route rule and with
 every call streaming, in turns (route, streaming, streaming, route).
+
+``sharding`` runs chip_smoke.py's phase ``sharding`` alone: the host
+mesh, granite-3-2b's meshed train steps against unmeshed ones,
+mixtral-8x7b's local MoE path against its global one, two dry-run
+cells.
+
+``dryrun OUT`` runs ``python -m repro_torch.launch.dryrun`` on every
+arch x applicable shape at ``--mesh both`` and on llama4-maverick's
+``decode_32k`` with ``--opt moe_local``: one subprocess a cell, the
+archs' cells in parallel (one worker per arch, the GPU hidden: the cells
+run on the host's CPU over fake tensors), each cell under a time limit
+(a cell cut by it is reported as such), and prints
+``roofline.analysis.roofline_table`` over the JSON files it wrote. It
+needs no GPU (it does not build the kernels).
 
 Prints the card's name and power limit first. Needs a GPU; exits
 non-zero on any failure.
@@ -152,7 +169,66 @@ def rglru(torch) -> int:
     return 0
 
 
+DRYRUN_CELL_S = 900
+
+
+def dryrun_all(out: str) -> int:
+    """Every dry-run cell in subprocesses, one worker per arch."""
+    import json
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs.registry import ARCHS, applicable_shapes, get_config
+    from repro_torch.roofline import analysis
+
+    if shutil.which("nvidia-smi"):
+        cs.log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout.strip())
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    jobs = {arch: [["--arch", arch, "--shape", shape, "--mesh", "both"]
+                   for shape in applicable_shapes(get_config(arch))] for arch in ARCHS}
+    jobs["moe_local"] = [["--arch", "llama4-maverick-400b-a17b", "--shape", "decode_32k",
+                          "--mesh", "both", "--opt", "moe_local"]]
+
+    def run(cells):
+        lines = []
+        for args in cells:
+            try:
+                r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                                    "--out", out], capture_output=True, text=True, env=env,
+                                   cwd=str(ROOT), timeout=DRYRUN_CELL_S)
+                lines += [ln for ln in r.stdout.splitlines() if ln.startswith(("OK", "FAIL"))]
+            except subprocess.TimeoutExpired:
+                lines.append(f"CUT  {' '.join(args)}: past {DRYRUN_CELL_S} s")
+        return lines
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for lines in pool.map(run, jobs.values()):
+            for ln in lines:
+                cs.log(ln)
+    cells = analysis.load_cells(out)
+    table = analysis.roofline_table(cells)
+    cs.log(",".join(table["header"]))
+    for row in table["rows"]:
+        cs.log(",".join(str(x) for x in row))
+    for line in table["summary"]:
+        cs.log(line)
+    cs.log(json.dumps([{k: c.get(k) for k in ("arch", "shape", "mesh", "opt", "ok", "run_s")}
+                       for c in cells]))
+    return 0
+
+
 def main() -> int:
+    import os
+
+    if len(sys.argv) > 2 and sys.argv[1] == "dryrun":
+        return dryrun_all(sys.argv[2])
+
+    # cuBLAS's deterministic workspace (phase sharding runs deterministic).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -175,6 +251,10 @@ def main() -> int:
         return 0
     if what == "rglru":
         return rglru(torch)
+    if what == "sharding":
+        with cs.Phase("sharding"):
+            cs.phase_sharding(torch, {})
+        return 0
     raise SystemExit(f"chip_measure: unknown measurement {what!r}")
 
 

@@ -244,17 +244,24 @@ class CompletionWatchdog:
         self._closed = True
         self.completed()
 
-    def _arm(self, token: int, when: float) -> None:
+    def _arm(self, token: int, when: float, catch_up: bool = True) -> None:
         self._eid = self.loop.schedule(
             max(when, self.loop.now),
-            lambda: self._check(token),
+            lambda: self._check(token, when, catch_up),
             priority=getattr(self.loop, "PRIO_COMPLETE", 0),
         )
 
-    def _check(self, token: int) -> None:
+    def _check(self, token: int, when: float, catch_up: bool) -> None:
         self._eid = None
         out = self._outstanding
         if self._closed or out is None or out[0] != token:
+            return
+        if catch_up and self.loop.now > when:
+            # A wall clock runs the check after its instant, later still
+            # when a callback held the loop's thread (closing a wedged
+            # device joins its waiter). Let what was posted meanwhile, a
+            # completion among it, run first. Virtual time is never late.
+            self._arm(token, self.loop.now, catch_up=False)
             return
         _, job, expected, start = out
         elapsed = self.loop.now - start
@@ -292,16 +299,21 @@ class _WedgedHandle:
 
 
 class _ThrottledHandle:
-    """Delays an underlying handle's completion to a fixed instant."""
+    """Delays an underlying handle's completion to ``hold`` seconds after
+    the device reaches the job, as a throttled accelerator runs a job
+    slowly once it starts it. The device reaches the job at ``wait()``: ``AsyncDevice``'s waiter calls it once the job's stream
+    mark has completed, where the watchdog's clock starts too (without
+    a mark, at once after submit)."""
 
-    def __init__(self, inner, clock: Callable[[], float], until: float) -> None:
+    def __init__(self, inner, clock: Callable[[], float], hold: float) -> None:
         self._inner = inner
         self._clock = clock
-        self._until = until
+        self._hold = hold
 
     def wait(self):
+        until = self._clock() + self._hold
         result = self._inner.wait() if self._inner is not None else None
-        remaining = self._until - self._clock()
+        remaining = until - self._clock()
         if remaining > 0:
             time.sleep(remaining)
         return result
@@ -470,9 +482,8 @@ class FaultyDevice:
         effective = max(exec_time * spec.factor, exec_time + spec.extra)
         if self.is_live:
             inner_dispatch = self.inner.dispatch_fn
-            until = self.loop.now + effective
             self.inner.dispatch_fn = lambda j: _ThrottledHandle(
-                inner_dispatch(j), lambda: self.loop.now, until
+                inner_dispatch(j), lambda: self.loop.now, effective
             )
             try:
                 self.inner.submit(job, exec_time, on_complete, job_bytes=job_bytes)

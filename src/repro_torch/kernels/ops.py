@@ -15,13 +15,26 @@ the same call as before and save nothing. ``decode_attention`` has none
 (training never decodes) and raises a ``RuntimeError`` then, rather than
 give a loss that no gradient flows back through (a plain version never
 stands in).
+
+On a mesh (DTensor arguments) each kernel runs on every rank's local
+shard, the view of the reference's ``shard_map``: ``mesh_call`` keeps a
+placement only where it splits dims the kernel treats independently
+(batch rows, or whole query/KV head groups; an rglru channel),
+redistributes every other placement (a sharded head_dim or sequence, a
+pending sum) to one the kernel can take (that collective is DTensor's,
+and counted as such), runs the same call on ``to_local()`` and wraps the
+result back with ``from_local``. Both are differentiable, so the
+backward kernels run the same way. A ``meta`` or fake tensor raises: no
+kernel runs on it.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import local_region
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
@@ -42,6 +55,10 @@ _KERNELS = {
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(t):
+        raise ValueError("no kernel runs on a fake tensor")
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
@@ -63,6 +80,89 @@ def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
                            "(run under torch.no_grad(), or on CPU tensors)")
 
 
+# Per argument, the dims a kernel treats independently, by role.
+_BATCH_HEADS = {"batch": 0, "heads": 2}  # (B, S, H, D) and (B, S, KV, D)
+_BATCH = {"batch": 0}
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+class _StridedGrad(torch.autograd.Function):
+    """The identity, whose gradient takes its input's strides: a local
+    shard's gradient goes back into a DTensor that keeps the forward's
+    stride metadata, so a gradient laid out otherwise would mislead the
+    DTensor ops (views) after it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.shape, x.stride())
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, stride = ctx.layout
+        if grad.stride() == stride:
+            return grad
+        return torch.empty_strided(shape, stride, dtype=grad.dtype,
+                                   device=grad.device).copy_(grad)
+
+
+def mesh_call(fn, args, dims, out_dims):
+    """``fn(*local shards)`` on every rank; returns DTensors.
+
+    ``dims[j]`` maps roles to argument j's dims and ``out_dims[k]`` to
+    output k's. A mesh dim keeps the first DTensor argument's ``Shard``
+    when that shards a role every argument with the role can split evenly
+    there; every other mesh dim is replicated. Plain tensor arguments
+    count as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    j = next(j for j, a in enumerate(args) if is_dtensor(a))
+    lead, lead_dims = args[j], dims[j]
+    mesh = lead.device_mesh
+    roles, split = [], {}
+    for i, pl in enumerate(lead.placements):
+        role = None
+        if type(pl) is Shard:
+            role = next((r for r, d in lead_dims.items() if d == pl.dim), None)
+        if role is not None:
+            n = split.get(role, 1) * mesh.size(i)
+            if all(a.shape[dm[role]] % n == 0 for a, dm in zip(args, dims)
+                   if a is not None and role in dm):
+                split[role] = n
+            else:
+                role = None
+        roles.append(role)
+
+    def layout(dm):
+        return [Shard(dm[r]) if r in dm else Replicate() for r in roles]
+
+    local = []
+    for a, dm in zip(args, dims):
+        if a is None:
+            local.append(None)
+            continue
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        want = layout(dm)
+        if tuple(a.placements) != tuple(want):
+            a = a.redistribute(mesh, want)
+        t = a.to_local()
+        local.append(_StridedGrad.apply(t) if t.requires_grad else t)
+    with local_region(math.prod(split.values())):
+        out = fn(*local)
+    outs = out if isinstance(out, tuple) else (out,)
+    wrapped = tuple(
+        None if o is None else DTensor.from_local(o.contiguous(), mesh, layout(dm),
+                                                  run_check=False)
+        for o, dm in zip(outs, out_dims))
+    return wrapped if isinstance(out, tuple) else wrapped[0]
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -75,6 +175,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Prefill (or cross-) attention; see ``kernels/flash_attention.py``
     for the masks and the positions' precondition."""
+    if is_dtensor(q) or is_dtensor(k):
+        return mesh_call(
+            lambda *a: flash_attention(*a[:3], causal=causal, window=window, q_pos=a[3],
+                                       kv_pos=a[4]),
+            [q, k, v, q_pos, kv_pos], [_BATCH_HEADS] * 3 + [_BATCH] * 2, [_BATCH_HEADS])
     kw = dict(causal=causal, window=window, q_pos=q_pos, kv_pos=kv_pos)
     if _on_cuda(q):
         return _flash.flash_attention(q, k, v, **kw)
@@ -93,6 +198,11 @@ def decode_attention(
     window: Optional[int] = None,
     causal: bool = True,
 ) -> torch.Tensor:
+    if is_dtensor(q) or is_dtensor(cache_k):
+        return mesh_call(
+            lambda *a: decode_attention(*a, window=window, causal=causal),
+            [q, cache_k, cache_v, cursor, kv_pos, kv_valid, active],
+            [_BATCH_HEADS] * 3 + [_BATCH] * 4, [_BATCH_HEADS])
     if _on_cuda(q):
         _refuse_grad("decode_attention", q, cache_k, cache_v)
         fn = _decode.decode_attention
@@ -107,6 +217,9 @@ def rglru_scan(
     b: torch.Tensor,
     h0: Optional[torch.Tensor] = None,  # (B, D) float32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if is_dtensor(a) or is_dtensor(b):
+        seq, last = {"batch": 0, "heads": 2}, {"batch": 0, "heads": 1}
+        return mesh_call(rglru_scan, [a, b, h0], [seq, seq, last], [seq, last])
     if _on_cuda(a):
         return _rglru.rglru_scan(a, b, h0)
     return _rglru.rglru_scan_plain(a, b, h0)
@@ -124,7 +237,16 @@ def wkv6(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``state_out`` (optional, may be ``state``) receives the last state
     in place: the kernel writes it there directly, the plain path copies.
-    The kernel refuses it when a gradient is required."""
+    The kernel refuses it when a gradient is required. On a mesh each
+    rank's shard runs the kernel and ``state_out`` is then copied into."""
+    if any(is_dtensor(t) for t in (r, k, v, w, u, state)):
+        st = {"batch": 0, "heads": 1}
+        out, new = mesh_call(wkv6, [r, k, v, w, u, state],
+                             [_BATCH_HEADS] * 4 + [{"heads": 0}, st], [_BATCH_HEADS, st])
+        if state_out is not None:
+            state_out.copy_(new)
+            new = state_out
+        return out, new
     if _on_cuda(r):
         return _wkv6.wkv6(r, k, v, w, u, state, state_out=state_out)
     return _wkv6.wkv6_plain(r, k, v, w, u, state, state_out=state_out)

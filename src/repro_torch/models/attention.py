@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import Param, apply_mrope, apply_rope
+from repro_torch.models.sharding_hooks import flattenable, reshape
 
 NEG_INF = -1e30
 
@@ -97,11 +98,11 @@ def build_mask(
         q.shape[:2] + (kv_pos.shape[1],), dtype=torch.bool, device=q_pos.device
     )
     if causal:
-        mask &= k <= q
+        mask = mask & (k <= q)
     if window is not None:
-        mask &= k > q - window
+        mask = mask & (k > q - window)
     if kv_valid is not None:
-        mask &= kv_valid[:, None, :]
+        mask = mask & kv_valid[:, None, :]
     return mask
 
 
@@ -113,12 +114,22 @@ def dense_attention(
 ) -> torch.Tensor:
     b, sq, h, d = q.shape
     kv = k.shape[2]
-    qg = q.reshape(b, sq, kv, h // kv, d).float()
+    qg = reshape(q, b, sq, kv, h // kv, d).float()
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(d)
     logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return reshape(out, b, sq, h, d).to(q.dtype)
+
+
+def _dense(q, k, v, mask) -> torch.Tensor:
+    """``dense_attention``; on a mesh, on each rank's shard of whole batch
+    rows and head groups, as the kernels run (``ops.mesh_call``)."""
+    if any(kernel_ops.is_dtensor(t) for t in (q, k, v)):
+        bh = {"batch": 0, "heads": 2}
+        return kernel_ops.mesh_call(dense_attention, [q, k, v, mask],
+                                    [bh, bh, bh, {"batch": 0}], [bh])
+    return dense_attention(q, k, v, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +140,7 @@ def dense_attention(
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """'bsd,dhk->bshk' as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return reshape(x @ reshape(flattenable(w, 1, 2), d, h * k), *x.shape[:-1], h, k)
 
 
 def project_qkv(
@@ -146,7 +157,8 @@ def project_qkv(
 
 def project_out(p: Dict[str, torch.Tensor], o: torch.Tensor) -> torch.Tensor:
     h, k, d = p["wo"].shape
-    y = o.reshape(*o.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
+    o = reshape(flattenable(o, o.dim() - 2, o.dim() - 1), *o.shape[:-2], h * k)
+    y = o @ reshape(flattenable(p["wo"], 0, 1), h * k, d)
     if "bo" in p:
         y = y + p["bo"]
     return y
@@ -216,7 +228,7 @@ def mha(
         )
     else:
         mask = build_mask(pos1d, kv_pos, None, causal, window)
-        o = dense_attention(q, k, v, mask)
+        o = _dense(q, k, v, mask)
     return project_out(p, o)
 
 
@@ -260,5 +272,5 @@ def mha_decode(
         if active is not None:
             kv_valid = kv_valid & active[:, None]
         mask = build_mask(position[:, None], kv_positions, kv_valid, causal, window)
-        o = dense_attention(q, cache_k, cache_v, mask)
+        o = _dense(q, cache_k, cache_v, mask)
     return project_out(p, o)

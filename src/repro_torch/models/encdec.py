@@ -46,8 +46,10 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     Param,
+    abstract_params,
     apply_mlp,
     apply_norm,
+    build_axes,
     build_params,
     embed_lookup,
     embed_spec,
@@ -57,7 +59,7 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     unembed,
 )
-from repro_torch.models.sharding_hooks import constrain
+from repro_torch.models.sharding_hooks import constrain, remat_contexts, replicate
 from repro_torch.models.transformer import unstack
 
 BSE = ("batch", "seq", "embed")
@@ -137,6 +139,14 @@ class EncDecTransformer:
         """Random parameters drawn from ``generator`` (on ``device``)."""
         return build_params(self._spec, generator, dtype or self.cfg.dtype, device)
 
+    def abstract_params(self, dtype=None):
+        """The parameters' shapes and dtypes on the ``meta`` device."""
+        return abstract_params(self._spec, dtype or self.cfg.dtype)
+
+    def axes(self):
+        """The parameters' logical axes, a tree of tuples."""
+        return build_axes(self._spec)
+
     def _layers(self, params, part: str) -> List[Dict]:
         """Layer ``i``'s parameters of ``part`` ("encoder" or "decoder"),
         sliced once per params tree, or anew whenever a gradient is
@@ -158,8 +168,8 @@ class EncDecTransformer:
     def _enc_block(self, p, x, positions):
         cfg = self.cfg
         h = apply_norm(x, p["norm1"], cfg.norm)
-        x = x + mha(p["attn"], h, positions, causal=False, rope_theta=None,
-                    rope_kind="none", impl=cfg.impl)
+        x = constrain(x + mha(p["attn"], h, positions, causal=False, rope_theta=None,
+                              rope_kind="none", impl=cfg.impl), BSE)
         h2 = apply_norm(x, p["norm2"], cfg.norm)
         return constrain(x + apply_mlp(h2, p["ffn"], cfg.activation), BSE)
 
@@ -174,7 +184,8 @@ class EncDecTransformer:
         remat = self._remat()
         for p in self._layers(params, "encoder"):
             if remat:
-                x = checkpoint(self._enc_block, p, x, positions, use_reentrant=False)
+                x = checkpoint(self._enc_block, p, x, positions, use_reentrant=False,
+                               context_fn=remat_contexts)
             else:
                 x = self._enc_block(p, x, positions)
         return apply_norm(x, params["enc_final_norm"], cfg.norm)
@@ -183,18 +194,19 @@ class EncDecTransformer:
     def _dec_block_full(self, p, x, positions, enc_out):
         cfg = self.cfg
         h = apply_norm(x, p["norm1"], cfg.norm)
-        x = x + mha(p["self_attn"], h, positions, causal=True, rope_theta=None,
-                    rope_kind="none", impl=cfg.impl)
+        x = constrain(x + mha(p["self_attn"], h, positions, causal=True, rope_theta=None,
+                              rope_kind="none", impl=cfg.impl), BSE)
         hc = apply_norm(x, p["norm_cross"], cfg.norm)
         x = x + mha(p["cross_attn"], hc, positions, causal=False, rope_theta=None,
                     rope_kind="none", impl=cfg.impl,
                     kv_override=_cross_kv(p["cross_attn"], enc_out))
+        x = constrain(x, BSE)
         h2 = apply_norm(x, p["norm2"], cfg.norm)
         return constrain(x + apply_mlp(h2, p["ffn"], cfg.activation), BSE)
 
     def _embed_dec(self, params, tokens, positions):
         x = embed_lookup(params["embed"], tokens)
-        return x + params["dec_pos"][positions].to(x.dtype)
+        return x + params["dec_pos"][replicate(positions)].to(x.dtype)
 
     def forward(
         self, params, frames: torch.Tensor, dec_tokens: torch.Tensor
@@ -208,7 +220,7 @@ class EncDecTransformer:
         for p in self._layers(params, "decoder"):
             if remat:
                 x = checkpoint(self._dec_block_full, p, x, positions, enc_out,
-                               use_reentrant=False)
+                               use_reentrant=False, context_fn=remat_contexts)
             else:
                 x = self._dec_block_full(p, x, positions, enc_out)
         x = apply_norm(x, params["dec_final_norm"], self.cfg.norm)

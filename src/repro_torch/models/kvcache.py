@@ -100,6 +100,47 @@ def ring_cache_present_window(cache, cursor: int):
     return cache
 
 
+def write_rows(dst: torch.Tensor, val: torch.Tensor, pos: torch.Tensor) -> None:
+    """``dst[b, pos[b]] = val[b]`` for every row b, in place (dst (B, S,
+    ...), val (B, ...)).
+
+    On a mesh (``dst`` a DTensor) every rank writes its own shard: ``val``
+    and ``pos`` are laid out like ``dst``'s rows and trailing dims, and a
+    sequence shard takes only the rows whose position falls in it. DTensor
+    has no in-place indexed write that keeps a sharded layout."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(dst, DTensor):
+        idx = torch.arange(dst.shape[0], device=dst.device)
+        dst[idx, pos.long()] = val.to(dst.dtype)
+        return
+    mesh = dst.device_mesh
+    val_pl, pos_pl, seq_dims = [], [], []
+    for i, pl in enumerate(dst.placements):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            seq_dims.append(i)
+        sharded = isinstance(pl, Shard) and pl.dim != 1
+        val_pl.append(Shard(max(pl.dim - 1, 0)) if sharded else Replicate())
+        pos_pl.append(Shard(0) if sharded and pl.dim == 0 else Replicate())
+
+    def local(t, placements):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    val_l, pos_l = local(val, val_pl), local(pos, pos_pl).long()
+    dst_l = dst.to_local()
+    s_loc = dst_l.shape[1]
+    index = 0
+    for i in seq_dims:  # mesh-dim order, as DTensor lays the shards out
+        index = index * mesh.size(i) + mesh.get_local_rank(i)
+    p = pos_l - index * s_loc
+    inside = ((p >= 0) & (p < s_loc)).reshape(-1, *([1] * (val_l.dim() - 1)))
+    p = p.clamp(0, s_loc - 1)
+    idx = torch.arange(dst_l.shape[0], device=dst_l.device)
+    dst_l[idx, p] = torch.where(inside, val_l.to(dst_l.dtype), dst_l[idx, p])
+
+
 def attn_cache_init(
     batch: int, max_len: int, n_kv: int, head_dim: int, dtype, device="cuda",
     lead: Tuple[int, ...] = (),
@@ -117,10 +158,8 @@ def attn_cache_write(
 ) -> Dict:
     """k, v: (B, 1, KV, D); pos: (B,) absolute positions (cursor). Writes
     row b's slot pos[b] in place for every row; returns ``cache``."""
-    idx = torch.arange(k.shape[0], device=k.device)
-    pos = pos.long()
-    cache["k"][idx, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][idx, pos] = v[:, 0].to(cache["v"].dtype)
+    write_rows(cache["k"], k[:, 0], pos)
+    write_rows(cache["v"], v[:, 0], pos)
     return cache
 
 
@@ -153,12 +192,11 @@ def ring_cache_write(
 ) -> Dict:
     """k, v: (B, 1, KV, D); pos: (B,) absolute positions. Row b's token
     goes to slot ``pos[b] % window``, in place; returns ``cache``."""
-    b, window = cache["pos"].shape
-    idx = torch.arange(b, device=k.device)
+    window = cache["pos"].shape[1]
     slot = pos.long() % window
-    cache["k"][idx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][idx, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][idx, slot] = pos.to(torch.int32)
+    write_rows(cache["k"], k[:, 0], slot)
+    write_rows(cache["v"], v[:, 0], slot)
+    write_rows(cache["pos"], pos.to(torch.int32), slot)
     return cache
 
 

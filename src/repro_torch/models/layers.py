@@ -20,6 +20,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding_hooks import replicate, unshard
+
 # ---------------------------------------------------------------------------
 # Param specs and trees
 # ---------------------------------------------------------------------------
@@ -89,6 +91,17 @@ def build_params(
     """Materialize a spec tree into tensors, drawn in tree order from
     ``generator`` (which must live on ``device``)."""
     return map_tree(lambda p: _init_leaf(p, dtype, device, generator), spec)
+
+
+def abstract_params(spec: Any, dtype=torch.bfloat16) -> Any:
+    """The spec tree as tensors on the ``meta`` device: shapes and dtypes
+    for the dry run, nothing allocated."""
+    return map_tree(lambda p: torch.empty(p.shape, dtype=dtype, device="meta"), spec)
+
+
+def build_axes(spec: Any) -> Any:
+    """Tree of logical-axis tuples matching the param tree structure."""
+    return map_tree(lambda p: p.axes, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +242,11 @@ def embed_spec(vocab: int, d_model: int) -> Param:
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids, table)
+    """Rows of ``table``. On a mesh the ids and the table's vocab shards are
+    gathered whole first (DTensor's vocab-parallel lookup has no backward
+    from a pending sum), and the caller's ``constrain`` lays the rows out
+    by batch."""
+    return F.embedding(replicate(ids), unshard(table, 0))
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

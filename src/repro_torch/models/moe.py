@@ -22,8 +22,18 @@ the k terms are added to a zero start in choice order: deterministic
 for any k, and equal bit for bit to the reference's sum for k <= 2,
 where the order of two additions to zero cannot matter.
 
-The reference's ``shard_map`` local path (expert parallelism over a
-mesh) belongs to the sharding slice and is not here.
+On a mesh (``sharding_hooks.set_moe_mesh``), when the batch divides the
+data axes, ``apply_moe`` takes the local path, the counterpart of the
+reference's ``shard_map`` (``_apply_moe_local``): each data shard routes
+its own tokens through the global path with no collective of its own.
+The weights' FSDP-sharded dims are all-gathered over the data axes by a
+differentiable functional collective (its transpose, in the backward, is
+a reduce-scatter); the router is gathered whole, so routing runs on
+plain tensors; the expert products stay DTensors on the model axis
+(expert parallelism, or tensor parallelism inside each expert, by the
+rules). ``aux`` is averaged over the data axes. A plain input (the
+whole batch on every rank) gives plain outputs, gathered whole.
+``local_calls`` counts the path's calls.
 """
 from __future__ import annotations
 
@@ -33,7 +43,11 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_region
 from repro_torch.models.layers import Param, apply_mlp, mlp_spec
+from repro_torch.models.sharding_hooks import constrain, moe_mesh, replicate, reshape
+
+local_calls = 0
 
 
 def moe_spec(
@@ -115,32 +129,153 @@ def apply_moe(
     capacity_factor: float = 1.25,
     min_capacity: int = 4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output, aux_loss): the reference's global path
-    (``repro.models.moe._apply_moe_global``). aux_loss is the standard
-    load-balancing loss (mean over experts of fraction_tokens *
-    fraction_probs * E)."""
+    """Returns (output, aux_loss). aux_loss is the standard load-balancing
+    loss (mean over experts of fraction_tokens * fraction_probs * E).
+
+    When a mesh is installed (``sharding_hooks.set_moe_mesh``) and the
+    batch divides the data axes, dispatch runs in the local path;
+    otherwise the reference's global path
+    (``repro.models.moe._apply_moe_global``)."""
+    mesh = moe_mesh()
+    kw = dict(top_k=top_k, activation=activation, capacity_factor=capacity_factor,
+              min_capacity=min_capacity)
+    if mesh is not None:
+        data_axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+        n_shards = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in data_axes)
+        if data_axes and x.shape[0] % n_shards == 0 and x.shape[0] >= n_shards:
+            return _apply_moe_local(p, x, mesh, data_axes, **kw)
+    return _apply_moe_global(p, x, **kw)
+
+
+def _dtensor(t: torch.Tensor, mesh):
+    """``t`` as a DTensor on ``mesh`` (a plain tensor counts as replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _apply_moe_local(p: Dict, x: torch.Tensor, mesh, data_axes, *, top_k: int,
+                     activation: str, capacity_factor: float, min_capacity: int):
+    """The local path: routing per data shard, FSDP dims gathered."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    # The same differentiable all_gather under its newer name where it has one.
+    all_gather = getattr(funcol, "all_gather_single_autograd", None) or \
+        funcol.all_gather_tensor_autograd
+    global local_calls
+    local_calls += 1
+    names = mesh.mesh_dim_names
+    model = mesh["model"] if "model" in names else None
+    data_dims = [names.index(a) for a in data_axes]
+    # Innermost mesh dim first: DTensor lays a dim sharded over several
+    # mesh dims out in mesh-dim order, so this rebuilds it in order.
+    gather_order = sorted(data_dims, reverse=True)
+
+    def gather(w, whole=False):
+        w = _dtensor(w, mesh)
+        t = w.to_local()
+        for i in gather_order:
+            pl = w.placements[i]
+            if isinstance(pl, Shard):
+                t = all_gather(t, pl.dim, mesh.get_group(i))
+        if model is None:
+            return t
+        on_model = w.placements[names.index("model")]
+        if not isinstance(on_model, Shard):
+            on_model = Replicate()
+        wm = DTensor.from_local(t, model, [on_model], run_check=False)
+        return wm.full_tensor() if whole else wm
+
+    full = {name: gather(p[name], whole=(name == "router")) for name in ("router", "gate", "up",
+                                                                        "down") if name in p}
+    if "shared" in p:
+        full["shared"] = {k: gather(v) for k, v in p["shared"].items()}
+    x_layout = [Shard(0) if i in data_dims else Replicate() for i in range(mesh.ndim)]
+    x_loc = _dtensor(x, mesh).redistribute(mesh, x_layout).to_local()
+    with local_region(math.prod(mesh.size(i) for i in data_dims)):
+        out, aux = _apply_moe_global(full, x_loc, top_k=top_k, activation=activation,
+                                     capacity_factor=capacity_factor,
+                                     min_capacity=min_capacity, use_constraints=False,
+                                     expert_mesh=model)
+    out = DTensor.from_local(out, mesh, x_layout, run_check=False)
+    # aux is each shard's mean; the data axes average it.
+    aux = DTensor.from_local(
+        aux, mesh, [Partial("avg") if i in data_dims else Replicate() for i in range(mesh.ndim)],
+        run_check=False)
+    if not isinstance(x, DTensor):  # plain in, plain out (whole on every rank)
+        return out.full_tensor(), aux.full_tensor()
+    return out, aux
+
+
+def _experts(t: torch.Tensor, expert_mesh):
+    """Inside the local path: a plain (replicated) tensor as a DTensor on
+    the model axis, for the products with the model-sharded weights."""
+    if expert_mesh is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, expert_mesh, [Replicate()], run_check=False)
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """Inside the local path: a model-axis DTensor gathered to a plain
+    tensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim).to_local()
+
+
+def _apply_moe_global(
+    p: Dict,
+    x: torch.Tensor,  # (B, S, D)
+    *,
+    top_k: int,
+    activation: str,
+    capacity_factor: float = 1.25,
+    min_capacity: int = 4,
+    use_constraints: bool = True,
+    expert_mesh=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's global path. ``expert_mesh`` (the local path's
+    model axis) runs the expert products as DTensors there."""
     b, s, d = x.shape
     e = p["router"].shape[1]
     t = b * s
-    xf = x.reshape(t, d)
+    # On a mesh the global path routes every token on every rank (DTensor
+    # has no sharded sort or gather by data-dependent indices), as GSPMD
+    # replicates the reference's; the local path is what avoids that.
+    xf = replicate(reshape(x, t, d))
     plan = dispatch_plan(p["router"], xf, top_k=top_k, capacity_factor=capacity_factor,
                          min_capacity=min_capacity)
     c = plan.capacity
     tok = torch.arange(t * top_k, device=x.device) // top_k
     # Kept slots are distinct; only the discarded drop row is written twice.
     buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, plan.slot, xf[tok])
-    xe = buf[:-1].reshape(e, c, d)
+    buf = buf.index_copy(0, plan.slot, xf[tok])
+    xe = reshape(buf[:-1], e, c, d)
+    if use_constraints:
+        xe = constrain(xe, ("expert", None, "embed"))
+    xe = _experts(xe, expert_mesh)
     h = _activate(activation, p, xe, "ecd,edf->ecf")
     ye = torch.einsum("ecf,efd->ecd", h, p["down"])
-    yflat = torch.cat([ye.reshape(e * c, d), ye.new_zeros((1, d))])
+    if expert_mesh is not None:
+        ye = _plain(ye)
+    if use_constraints:
+        ye = constrain(ye, ("expert", None, "embed"))
+    yflat = torch.cat([reshape(ye, e * c, d), ye.new_zeros((1, d))])
     terms = (yflat[plan.slot] * plan.top_w.reshape(-1, 1).to(x.dtype)).reshape(t, top_k, d)
     out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(top_k):
         out = out + terms[:, j]
     if "shared" in p:
-        out = out + apply_mlp(xf, p["shared"], activation)
-    return out.reshape(b, s, d), plan.aux
+        shared = apply_mlp(_experts(xf, expert_mesh), p["shared"], activation)
+        out = out + (_plain(shared) if expert_mesh is not None else shared)
+    return reshape(out, b, s, d), plan.aux
 
 
 def apply_moe_dense_reference(

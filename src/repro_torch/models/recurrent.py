@@ -38,9 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import rglru_ref
+from repro_torch.kernels.ref import rglru_chunked_plain, rglru_ref, wkv6_chunked_plain
 from repro_torch.kernels.wkv6 import wkv6_plain
 from repro_torch.models.layers import Param
+from repro_torch.models.sharding_hooks import pad_front, reshape
 
 RGLRU_C = 8.0
 CONV_WIDTH = 4
@@ -74,7 +75,8 @@ def rglru_gates(p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"])
     i = torch.sigmoid(xf @ p["w_x"].float() + p["b_x"])
     # softplus without a linear cut-over (jax.nn.softplus is exact).
-    log_a = -RGLRU_C * torch.logaddexp(p["lam"].float(), torch.zeros((), device=x.device)) * r
+    lam = p["lam"].float()
+    log_a = -RGLRU_C * torch.logaddexp(lam, torch.zeros_like(lam)) * r
     a = torch.exp(log_a)
     # sqrt(1 - a^2) computed stably via log-space: 1 - exp(2 log_a)
     gate = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -87,7 +89,15 @@ def rglru_prefill(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain path. x: (B, S, D) -> (outputs (B, S, D), final state (B, D))."""
     a, b = rglru_gates(p, x)
-    h, h_last = rglru_ref(a, b, h0)
+    if any(kernel_ops.is_dtensor(t) for t in (a, b, h0)):
+        # On a mesh: each rank's rows and channels, through the chunked
+        # kernel's plain twin (S / 64 steps of eager dispatch, not S: the
+        # dry run's 32768-step prefill would take hours over fake tensors).
+        seq, last = {"batch": 0, "heads": 2}, {"batch": 0, "heads": 1}
+        h, h_last = kernel_ops.mesh_call(rglru_chunked_plain, [a, b, h0], [seq, seq, last],
+                                         [seq, last])
+    else:
+        h, h_last = rglru_ref(a, b, h0)
     return h.to(x.dtype), h_last
 
 
@@ -129,7 +139,7 @@ def griffin_block(
     s = branch.shape[1]
     if state is None:
         h0 = None
-        hist = F.pad(branch, (0, 0, CONV_WIDTH - 1, 0))
+        hist = pad_front(branch, CONV_WIDTH - 1)
     else:
         # Continuation: convolve over the carried inputs, not zero padding.
         h0 = state["h"]
@@ -208,7 +218,7 @@ def _rwkv6_inputs(p: Dict, x: torch.Tensor, x_prev: torch.Tensor):
     d = x.shape[-1]
     delta = x_prev - x
     x_base = x + delta * p["mu_x"]
-    mods = _apply_lora(p["lora_rkvgw"], x_base).reshape(*x.shape[:-1], 5, d)
+    mods = reshape(_apply_lora(p["lora_rkvgw"], x_base), *x.shape[:-1], 5, d)
     mix = p["mu"] + mods  # (B, S, 5, D)
     xr, xk, xv, xg, xw = [x + delta * mix[..., i, :] for i in range(5)]
     r = xr @ p["w_r"]
@@ -231,7 +241,20 @@ def rwkv6_wkv_scan(
     state_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The WKV-6 recurrence, plain path. Returns (out float32, state');
-    ``state_out`` as in ``kernels.ops.wkv6``."""
+    ``state_out`` as in ``kernels.ops.wkv6``. On a mesh it runs on each
+    rank's rows and heads (``ops.mesh_call``)."""
+    if any(kernel_ops.is_dtensor(t) for t in (r, k, v, w, u, state)):
+        # On a mesh: each rank's rows and heads; S > 1 through the chunked
+        # kernel's plain twin, as for the RG-LRU scan.
+        bh, st = {"batch": 0, "heads": 2}, {"batch": 0, "heads": 1}
+        scan = wkv6_plain if r.shape[1] == 1 else wkv6_chunked_plain
+        out, new = kernel_ops.mesh_call(lambda *a: scan(a[0].float(), *a[1:]),
+                                        [r, k, v, w, u, state],
+                                        [bh] * 4 + [{"heads": 0}, st], [bh, st])
+        if state_out is not None:
+            state_out.copy_(new)
+            new = state_out
+        return out, new
     return wkv6_plain(r.float(), k, v, w, u, state, state_out=state_out)
 
 
@@ -249,16 +272,16 @@ def rwkv6_timemix(
     b, s, d = x.shape
     hd = d // n_heads
     if state is None:
-        x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+        x_prev = pad_front(x, 1)[:, :-1]
         wkv_state = None
     else:
         x_prev = torch.cat([state["shift"][:, None, :].to(x.dtype), x[:, :-1]], dim=1)
         wkv_state = state["wkv"]
     r, k, v, g, w = _rwkv6_inputs(p, x, x_prev)
-    rh = r.reshape(b, s, n_heads, hd)
-    kh = k.reshape(b, s, n_heads, hd)
-    vh = v.reshape(b, s, n_heads, hd)
-    wh = w.reshape(b, s, n_heads, hd)
+    rh = reshape(r, b, s, n_heads, hd)
+    kh = reshape(k, b, s, n_heads, hd)
+    vh = reshape(v, b, s, n_heads, hd)
+    wh = reshape(w, b, s, n_heads, hd)
     if impl in KERNEL_IMPLS:
         out, wkv_new = kernel_ops.wkv6(
             rh.contiguous(), kh.contiguous(), vh.contiguous(), wh.contiguous(),
@@ -273,7 +296,7 @@ def rwkv6_timemix(
     mu = oh.mean(dim=-1, keepdim=True)
     var = oh.var(dim=-1, keepdim=True, unbiased=False)
     oh = (oh - mu) * torch.rsqrt(var + 1e-5)
-    out = oh.reshape(b, s, d) * p["ln_scale"] + p["ln_bias"]
+    out = reshape(oh, b, s, d) * p["ln_scale"] + p["ln_bias"]
     y = (out.to(x.dtype) * g) @ p["w_o"]
     # States are kept float32 across steps (cache dtype stability).
     return y, {"shift": x[:, -1].float(), "wkv": wkv_new}
@@ -294,7 +317,7 @@ def rwkv6_channelmix(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """state: (B, D) last token (None = zero-shift prefill)."""
     if state is None:
-        x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+        x_prev = pad_front(x, 1)[:, :-1]
     else:
         x_prev = torch.cat([state[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
     delta = x_prev - x

@@ -16,7 +16,8 @@ cache, in place).
 Training: when ``cfg.remat`` is set and autograd is recording, each layer
 of ``forward`` runs under ``torch.utils.checkpoint`` (non-reentrant): its
 activations are recomputed in the backward pass, the counterpart of the
-reference's ``jax.checkpoint`` over each superblock. Per-layer parameter
+reference's ``jax.checkpoint`` over each superblock (on a mesh the
+recompute re-enters the forward's mode, ``sharding_hooks.remat_contexts``). Per-layer parameter
 views are cut from the stacked tensors by one ``unbind`` per leaf, so the
 backward gathers a stacked leaf's gradient with one stack, not one
 full-size gradient per layer; they are cached (for decode) only while no
@@ -54,8 +55,10 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     Param,
+    abstract_params,
     apply_mlp,
     apply_norm,
+    build_axes,
     build_params,
     embed_lookup,
     embed_spec,
@@ -75,6 +78,7 @@ from repro_torch.models.recurrent import (
     rwkv6_timemix,
     rwkv6_timemix_spec,
 )
+from repro_torch.models.sharding_hooks import constrain, remat_contexts
 
 KINDS = ("attn", "swa", "rglru", "rwkv")
 
@@ -195,7 +199,10 @@ def _apply_block_full(
         y, contrib = griffin_block(p["mixer"], h, impl=cfg.impl)
     else:  # rwkv
         y, contrib = rwkv6_timemix(p["mixer"], h, cfg.n_heads, impl=cfg.impl)
-    x = x + y
+    # On a mesh DTensor lays out each op's result by itself; pinning the
+    # residual stream here too (the reference pins it only at the block's
+    # end) keeps a pending sum from turning into a sequence shard.
+    x = constrain(x + y, ("batch", "seq", "embed"))
     h2 = apply_norm(x, p["norm2"], cfg.norm)
     aux = None
     if kind == "rwkv":
@@ -208,7 +215,8 @@ def _apply_block_full(
                            capacity_factor=cfg.moe_capacity_factor)
     else:
         f = apply_mlp(h2, p["ffn"], cfg.activation)
-    return x + f, aux, contrib if collect else None
+    x = constrain(x + f, ("batch", "seq", "embed"))
+    return x, aux, contrib if collect else None
 
 
 def _apply_block_decode(
@@ -345,6 +353,14 @@ class Transformer:
         """Random parameters drawn from ``generator`` (on ``device``)."""
         return build_params(self._spec, generator, dtype or self.cfg.dtype, device)
 
+    def abstract_params(self, dtype=None):
+        """The parameters' shapes and dtypes on the ``meta`` device."""
+        return abstract_params(self._spec, dtype or self.cfg.dtype)
+
+    def axes(self):
+        """The parameters' logical axes, a tree of tuples."""
+        return build_axes(self._spec)
+
     def _layers(self, params) -> List[Tuple[str, Dict, Tuple]]:
         """[(kind, layer params, where)] in depth order: superblock i at
         pattern position j (``where = ("super", j, i)``), then tail layer t
@@ -378,7 +394,7 @@ class Transformer:
         x = embed_lookup(params["embed"], tokens)
         if self.cfg.embed_scale:
             x = x * math.sqrt(self.cfg.d_model)
-        return x
+        return constrain(x, ("batch", "seq", "embed"))
 
     def _logits(self, params, x):
         x = apply_norm(x, params["final_norm"], self.cfg.norm)
@@ -400,7 +416,8 @@ class Transformer:
         for kind, p, _ in self._layers(params):
             if remat:
                 x, a, _ = checkpoint(_apply_block_full, self.cfg, kind, p, x, positions,
-                                     False, use_reentrant=False)
+                                     False, use_reentrant=False,
+                                     context_fn=remat_contexts)
             else:
                 x, a, _ = _apply_block_full(self.cfg, kind, p, x, positions, collect=False)
             if a is not None:

@@ -1355,3 +1355,88 @@ def test_train_step_through_kernels_matches_dense_on_card(cuda, arch, monkeypatc
     step = ttl.make_train_step(mk, ttl.TrainConfig(adamw=topt.AdamWConfig(warmup_steps=1)))
     state, met = step(ttl.TrainState(params, topt.init(params)), batch)
     assert bool(torch.isfinite(met["loss"])) and int(state.opt.step) == 1
+
+
+@pytest.mark.cuda
+def test_host_mesh_train_step_equals_unmeshed_on_card(cuda):
+    """A tiny granite (bf16, remat on) on the (1, 1) NCCL host mesh: two
+    train steps equal the unmeshed steps bit for bit (losses and every state
+    leaf, deterministic algorithms on), with the same flash forward and
+    backward launches a step."""
+    import os
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import destroy_process_group, make_host_mesh
+    from repro_torch.models import model_for
+    from repro_torch.training import train_loop as ttl
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = tiny(MID, remat=True, param_dtype="bfloat16")
+    model = model_for(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                                        device=cuda)} for _ in range(2)]
+    mesh = make_host_mesh()
+
+    def run(meshed):
+        state = ttl.init_state(model, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        if meshed:
+            state = ttl.place_state(state, ttl.shardings_for_state(model, mesh))
+            shd.install_activation_resolver(mesh)
+        step = ttl.make_train_step(model, ttl.TrainConfig())
+        losses, launches = [], []
+        try:
+            for b in batches:
+                before = ops.launch_counts()
+                state, met = step(state, ttl.place_batch(b, mesh) if meshed else b)
+                losses.append(float(met["loss"]))
+                after = ops.launch_counts()
+                launches.append({n: after[n] - before[n] for n in after})
+        finally:
+            shd.clear_activation_resolver()
+        return losses, launches, [t.detach() for t in tree_leaves(list(ttl.full_state(state)))]
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = run(False)
+        got = run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        destroy_process_group()
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert all(l["flash_attention"] == 2 * cfg.n_layers and
+               l["flash_attention_bwd"] == cfg.n_layers for l in got[1])
+    assert len(got[2]) == len(want[2])
+    assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+
+
+@pytest.mark.cuda
+def test_ops_on_a_dtensor_run_the_kernel_on_the_local_shard(cuda):
+    """``ops.flash_attention`` on DTensors (host mesh) launches the kernel
+    once, on the local shard, and returns a DTensor whose local tensor is
+    the plain call's result; the gradient goes through the backward
+    kernel."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import destroy_process_group, make_host_mesh
+
+    mesh = make_host_mesh()
+    try:
+        g = torch.Generator(device=cuda).manual_seed(3)
+        q, k, v = (torch.randn((2, 96, h, 64), generator=g, device=cuda).to(torch.bfloat16)
+                   for h in (8, 2, 2))
+        qd, kd, vd = (DTensor.from_local(t, mesh, [Shard(0), Replicate()], run_check=False)
+                      .requires_grad_() for t in (q, k, v))
+        before = ops.launch_counts()
+        out = ops.flash_attention(qd, kd, vd, causal=True)
+        out.sum().backward()
+        after = ops.launch_counts()
+        assert isinstance(out, DTensor) and tuple(out.placements) == (Shard(0), Replicate())
+        assert after["flash_attention"] - before["flash_attention"] == 1
+        assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+        want = ops.flash_attention(q, k, v, causal=True)
+        assert torch.equal(out.to_local(), want)
+        assert qd.grad is not None and tuple(qd.grad.placements) == (Shard(0), Replicate())
+    finally:
+        destroy_process_group()

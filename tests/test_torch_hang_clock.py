@@ -59,11 +59,12 @@ class _Cluster:
         self.drift = drift
 
 
-def _run(mark_at, done_at, use_mark=True, throttle=None):
+def _run(mark_at, done_at, use_mark=True, throttle=None, hold_loop=None):
     """One job through AsyncDevice under the armed watchdog; ``mark_at``
-    and ``done_at`` are seconds after submit (None: never). Returns
-    (monitor, completions, measured (expected, actual) pairs, the
-    submit instant on the loop's clock)."""
+    and ``done_at`` are seconds after submit (None: never); ``hold_loop``
+    (at, seconds) blocks the loop's thread in a callback, as closing a
+    wedged slice's device does. Returns (monitor, completions, measured
+    (expected, actual) pairs, the submit instant on the loop's clock)."""
     loop = P.WallClock()
     cluster = _Cluster(loop)
     monitor = P.SliceHealthMonitor(cluster, CFG)
@@ -83,6 +84,8 @@ def _run(mark_at, done_at, use_mark=True, throttle=None):
     done = []
     submitted = loop.now
     device.submit("job", EXPECTED, lambda job, t: done.append(t))
+    if hold_loop is not None:
+        loop.schedule(submitted + hold_loop[0], lambda: time.sleep(hold_loop[1]))
     loop.run(until=submitted + 2.0)
     wedge.set()
     dev.close()
@@ -124,8 +127,38 @@ def test_a_wedged_job_is_still_quarantined_at_hang_after():
 
 @pytest.mark.parametrize("reach", [0.0, REACH])
 def test_a_throttled_job_behind_a_late_stream_lives(reach):
-    # FaultyDevice's DELAY holds the completion to submit + max(4 x WCET,
-    # WCET + 0.16) = 0.18 s, under the 0.3 s hang, wherever the stream
-    # reaches the job.
+    # FaultyDevice's DELAY holds the completion to max(4 x WCET, WCET +
+    # 0.16) = 0.18 s after the stream reaches the job, under the 0.3 s
+    # hang, wherever the stream reaches it.
     monitor, done, _, _ = _run(reach, reach + RUN, throttle=dict(factor=4.0, extra=0.16))
     assert _quarantines(monitor) == [] and len(done) == 1
+
+
+@pytest.mark.parametrize("reach", [0.0, REACH])
+def test_a_throttled_job_behind_a_late_stream_is_late(reach):
+    # The throttle is counted from where the watchdog's clock starts,
+    # so a job that waited behind other slices' work is still late:
+    # overdue at the 0.1 s deadline, then completed late at 0.18 s,
+    # two consecutive late signals, and the slice turns suspect.
+    monitor, done, measured, _ = _run(reach, reach + RUN, throttle=dict(factor=4.0, extra=0.16))
+    assert len(done) == 1
+    (_expected, actual), = measured
+    assert actual >= 0.18
+    assert [(old, new) for _t, _n, old, new, _r in monitor.transitions] == [
+        (P.HEALTHY, P.SUSPECT)]
+    assert "late completion" in monitor.transitions[0][4]
+
+
+def test_a_held_loop_does_not_turn_a_throttled_job_into_a_hang():
+    # The loop's thread is held from 0.05 s to 0.55 s after submit. The
+    # throttled job completes at 0.18 s, inside the hold, so its first
+    # heartbeat (due at 0.1 s) runs at 0.55 s behind the completion
+    # posted at 0.18 s: the completion runs first, the check is void.
+    # The held loop reads the completion late (one late signal), not
+    # hung past 0.3 s.
+    monitor, done, measured, _ = _run(0.0, RUN, throttle=dict(factor=4.0, extra=0.16),
+                                      hold_loop=(0.05, 0.5))
+    assert _quarantines(monitor) == [] and len(done) == 1
+    (_expected, actual), = measured
+    assert actual >= 0.5
+    assert monitor.transitions == []
