@@ -121,7 +121,32 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              decode captures while serving, both attention kernels
              launched; logs weights, peak memory, WCETs and the
              token-expert pairs dropped past capacity.
-14. encdec — whisper-large-v3 through the model API (the reference's
+14. serve_zoo — the engine-served archs not served above, one at a time
+             at full width, bf16, seed 0 (each engine, its graphs and the
+             allocator's cache freed before the next): gemma3-12b (all 48
+             layers), phi4-mini-3.8b (all 32), llama3-405b (4 of 126) and
+             llama4-maverick-400b-a17b (1 of 48): both attention kernels
+             at the arch's shapes against their plain versions in bf16
+             and float32 (flash causal at B = 1 and 8 x 512, gemma3's
+             local window 1024 too; decode over the 8-row arena at seq
+             2048, gemma3's local layers over their 1024-slot ring), the
+             bf16 batch-8 shapes timed beside SDPA; then served by DeepRT
+             (1 prefill + 2 decode streams, 8 frames, deadline 6 x (decode
+             + batch-8 prefill WCET)): conservation, no miss, zero decode
+             captures after warm-up, the step graph's launches against
+             CALLS_PER_STEP, one replay against the eager step bit for bit
+             on rows leased at spread cursors; logs WCETs, weights, arena
+             and peak memory, and llama4's dropped token-expert pairs.
+15. multitenant_driver — the port's end-to-end driver
+             (`repro_torch.launch.serve_multitenant.serve`) over
+             full-width granite-3-2b and rwkv6-1.6b in the reference
+             driver's four topologies: one device with its DeepRT and
+             BATCH-4 lines, 2 slices, 2 slices behind the ingest gateway
+             with camera sources, 2 slices behind the datagram transport
+             with a Chrome trace written to a temporary file. Each run:
+             conservation, zero decode captures on every slice, flash and
+             wkv6 launched; the trace run wrote spans.
+16. encdec — whisper-large-v3 through the model API (the reference's
              engine does not serve it): both attention kernels at its
              shapes against their plain versions (flash non-causal over
              1500 frames, causal, and cross at S_kv = 1500; decode over
@@ -136,7 +161,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              port's CheckpointManager (async) and restored onto the card,
              torch.equal per leaf; logs the save stall, write and restore
              times and both kernels' launches, by shape.
-15. mrope — qwen2-vl-72b through the model API, MROPE_LAYERS (24) of its
+17. mrope — qwen2-vl-72b through the model API, MROPE_LAYERS (24) of its
              80 layers at full width: flash on Qwen2-VL position ids (an
              image's 256 tokens share one temporal position) and decode at
              its heads against their plain versions, timed with SDPA (an
@@ -146,7 +171,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              on them and 32 decode steps at the default mrope_position,
              kernel against dense; on text-only positions, decode against
              the teacher-forced forward.
-16. train — training. (a) The flash backward
+18. train — training. (a) The flash backward
              kernel against its plain version on the kernel's own O and
              LSE (and the forward's LSE against its plain one), two calls
              torch.equal: granite-3-2b's training shape (B = 8, S = 1024,
@@ -198,7 +223,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              (`python -m repro_torch.launch.train --tiny`) crashing at step
              7 and resuming from step 5, its final state digest equal to
              a straight run's; the launcher trains on the (1, 1) host mesh.
-17. sharding — the host mesh (`launch/mesh.make_host_mesh`: (1, 1)
+19. sharding — the host mesh (`launch/mesh.make_host_mesh`: (1, 1)
              ("data", "model") over cuda:0 on NCCL); granite-3-2b at full
              width (40 layers, TRAIN_BATCH x TRAIN_SEQ, remat on) takes 3
              AdamW steps unmeshed and 3 on the mesh (state laid out by
@@ -227,7 +252,8 @@ time; the rglru_scan row also has `train_*` times and the bound at the
 training shape (1, 4096, 4096);
 the wkv6 row also has `b1_*` and `decode_*` times and bounds at (1, 512)
 and (8, 1); the attention rows carry `shapes`, a record per timed
-whisper / qwen2-vl / recurrentgemma / gemma3 shape; the backward rows a
+whisper / qwen2-vl / recurrentgemma / gemma3 shape and per timed
+serve_zoo shape; the backward rows a
 `split` of each design's launches); the last line is the device
 record. A backward kernel's launches are those of the first full-width
 train run that launches it: granite's for flash_attention_bwd, rwkv6's
@@ -255,6 +281,16 @@ MIXTRAL = "mixtral-8x7b"
 # card's 80 GB. It is served 16 of its 32 layers deep (23.5B parameters,
 # about 47 GB), every width as published.
 MOE_LAYERS = 16
+GEMMA3 = "gemma3-12b"
+PHI4 = "phi4-mini-3.8b"
+LLAMA3 = "llama3-405b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+# serve_zoo's depths at full width: every layer where the bf16 weights fit
+# the card beside the served run (gemma3 23.5 GB, phi4-mini 7.7 GB), else
+# the depth that does (llama3-405b 33.9 GB, llama4-maverick 36.7 GB, by
+# param_count_estimate).
+ZOO_LAYERS = {GEMMA3: 48, PHI4: 32, LLAMA3: 4, LLAMA4: 1}
+ZOO_DECODE_SEQ = 2048
 WHISPER = "whisper-large-v3"
 QWEN_VL = "qwen2-vl-72b"
 # qwen2-vl-72b at full width is 72.7B parameters, 145 GB in bf16: past the
@@ -661,89 +697,11 @@ def phase_kernels(torch, report):
         f"{previous_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms by {bound_by}; eager calls {eager_ms:.4f} ms each "
         f"({nbytes} bytes, {flops} flops)")
-    attention_at_recurrentgemma_shapes(torch, gen, F)
+    # recurrentgemma-9b's swa shapes: head dim 256, one kv head for 16
+    # query heads (MQA), window 2048, decode over a 2048-slot ring.
+    attention_at_shapes(torch, report, RGEMMA, 16, 1, 256, [2048], previous=True)
     recurrence_kernels(torch, report)
     log(f"launch counters after the kernels phase: {ops.launch_counts()}")
-
-
-def attention_at_recurrentgemma_shapes(torch, gen, F):
-    """Both attention kernels at recurrentgemma-9b's swa shapes: head dim
-    256, one kv head for 16 query heads (MQA), window 2048; decode over a
-    2048-slot ring with -1 sentinels, as the served arena presents it."""
-    from repro_torch.kernels import decode_attention as dk
-    from repro_torch.kernels import flash_attention as fk
-
-    h, kv, d, window = 16, 1, 256, 2048
-    for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
-        for b in (1, 8):
-            q = torch.randn((b, PREFILL_SEQ, h, d), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
-            got = fk.flash_attention(q, k, v, causal=True, window=window)
-            want = fk.flash_attention_plain(q, k, v, causal=True, window=window)
-            torch.cuda.synchronize()
-            err = assert_close(f"flash rg B={b} {dtype_name}", got, want, TOL[dtype_name])
-            log(f"flash {dtype_name} B={b} S={PREFILL_SEQ} H={h} KV={kv} D={d} causal "
-                f"window={window}: max_abs_err={err:.3e}")
-        b, s = 8, 2048
-        cursors = [4095, 3000, 2047, 2100, 5000, 2300, 2048, 9000]
-        q, ck, cv, cur, pos, valid, act = decode_inputs(
-            torch, b, s, h, kv, d, dtype, gen, cursors=cursors, ring=True,
-            active=[1, 1, 1, 0, 1, 1, 1, 1])
-        got = dk.decode_attention(q, ck, cv, cur, pos, valid, act, window=window)
-        want = dk.decode_attention_plain(q, ck, cv, cur, pos, valid, act, window=window)
-        torch.cuda.synchronize()
-        err = assert_close(f"decode rg ring {dtype_name}", got, want, TOL[dtype_name])
-        if bool(got[~act].float().abs().max() != 0):
-            raise AssertionError("decode rg ring: a dead row is not exact 0")
-        log(f"decode {dtype_name} B={b} S={s} H={h} KV={kv} D={d} [ring, -1 sentinels, "
-            f"window {window}, a dead row]: max_abs_err={err:.3e}")
-    # Times at these shapes (bf16), for the record beside granite's, each
-    # in turns with the previous design, with SDPA and the bound.
-    dtype = torch.bfloat16
-    b = 8
-    q = torch.randn((b, PREFILL_SEQ, h, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, PREFILL_SEQ, kv, d), generator=gen, device="cuda").to(dtype)
-    per_copy = (q.numel() + 2 * k.numel()) * q.element_size()
-    inputs = [(q, k, v)] + [(q.clone(), k.clone(), v.clone())
-                            for _ in range(n_copies(per_copy) - 1)]
-    ms, previous_ms = in_turns(
-        lambda q_, k_, v_: fk.flash_attention(q_, k_, v_, window=window),
-        lambda q_, k_, v_: fk.previous_design(q_, k_, v_, window=window), inputs)
-    lib_inputs = [tuple(t.transpose(1, 2).contiguous() for t in inp) for inp in inputs]
-    lib_ms = device_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
-        q_, k_, v_, is_causal=True, enable_gqa=True), lib_inputs)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4 * b * h * d * (PREFILL_SEQ * (PREFILL_SEQ + 1) // 2)  # the window spans S
-    bound_ms, bound_by = bound(nbytes, flops)
-    log(f"flash timed B={b} S={PREFILL_SEQ} H={h} KV={kv} D={d} bf16 causal window={window}: "
-        f"kernel {ms:.4f} ms, previous design {previous_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {flops} flops)")
-    base = decode_inputs(torch, b, 2048, h, kv, d, dtype, gen, cursors=[4095] * b, ring=True)
-    qd, ck, cv, cur, pos, valid, act = base
-    per_copy = 2 * ck.numel() * ck.element_size()
-    inputs = [base] + [(qd, ck.clone(), cv.clone(), cur, pos, valid, act)
-                       for _ in range(n_copies(per_copy) - 1)]
-    ms, previous_ms = in_turns(lambda *a: dk.decode_attention(*a, window=window),
-                               lambda *a: dk.previous_design(*a, window=window), inputs)
-    lib_inputs = []
-    for (q_, k_, v_, c_, p_, va_, _a) in inputs:
-        mask = ((p_ <= c_[:, None]) & va_ & (p_ > c_[:, None] - window))[:, None, None, :]
-        lib_inputs.append((q_.transpose(1, 2).contiguous(), k_.transpose(1, 2).contiguous(),
-                           v_.transpose(1, 2).contiguous(), mask))
-    lib_ms = device_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
-        q_, k_, v_, attn_mask=m_, enable_gqa=True), lib_inputs)
-    n_live = live_slots(cur, pos, valid, act, window)
-    esz = ck.element_size()
-    nbytes = (qd.numel() * esz * 2 + 2 * n_live * kv * d * esz + b * 4 + b * 2048 * 5)
-    flops = 4 * n_live * kv * (h // kv) * d
-    bound_ms, bound_by = bound(nbytes, flops)
-    log(f"decode timed B={b} S=2048 H={h} KV={kv} D={d} bf16 ring window={window} (split plan "
-        f"{dk.plan_splits(b, kv, 2048, dk._sm_count(qd.device))}): kernel {ms:.4f} ms, previous "
-        f"design {previous_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({n_live} live slots, {nbytes} bytes, {flops} flops)")
 
 
 def wkv6_inputs(torch, gen, b, s, h, k, dtype, w_dtype, with_state):
@@ -1235,8 +1193,13 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
 # Kernel wrapper calls per decode step (the captured launches of one step
 # replay), by model: granite's 40 attn layers; rwkv6's 24 rwkv layers;
 # recurrentgemma's 12 swa and 26 rglru layers; mixtral's 16 swa layers
-# (MOE_LAYERS).
+# (MOE_LAYERS); the zoo's attention layers at ZOO_LAYERS (gemma3's 40 swa
+# and 8 attn).
 CALLS_PER_STEP = {
+    GEMMA3: {"decode_attention": 48, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
+    PHI4: {"decode_attention": 32, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
+    LLAMA3: {"decode_attention": 4, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
+    LLAMA4: {"decode_attention": 1, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
     MID: {"decode_attention": 40, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
     RWKV: {"decode_attention": 0, "flash_attention": 0, "wkv6": 24, "rglru_scan": 0},
     RGEMMA: {"decode_attention": 12, "flash_attention": 0, "wkv6": 0, "rglru_scan": 26},
@@ -1321,14 +1284,36 @@ def phase_graphs(torch, mid, seq, k=8, **overrides):
     if not all(bool(torch.isfinite(chunk[i][live]).all()) for i in range(k)):
         raise AssertionError(f"{mid}: non-finite chunk logits")
 
-    # One step replay against the eager step, on the same arena.
+    replay_vs_eager(torch, engine, mid, seq, {r: payloads[0].get(r, 0) for r in live})
+    if [t.data_ptr() for t in leaves()] != ptrs:
+        raise AssertionError(f"{mid}: the arena's storage moved")
+    log(f"graphs {mid} seq {seq}: k={k} chunk vs {k} single replays bit-identical "
+        f"(rows {live}, steps {rows_plan}); replay vs eager step bit-identical "
+        f"(logits and every arena leaf); launches per step replay "
+        f"{step_g.launches}, per chunk {chunk_launches}; arena storage unchanged; "
+        f"decode_compiles {engine.stats['decode_compiles']}; eager step + captures "
+        f"{captured_s:.3f} s")
+    del engine, snap, after_chunk, chunk, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replay_vs_eager(torch, engine, mid, seq, payload):
+    """One step replay of the (mid, seq) graph on the leased rows of
+    ``payload`` (row -> token) against the eager step on the same arena
+    (snapshot, then restored in place): the live rows' logits and every
+    arena leaf, bit for bit."""
+    from repro_torch.models.layers import tree_leaves
+
+    arena = engine.arena(mid, seq)
+    leaves = lambda: tree_leaves(arena.cache) + [arena.cur, arena.active]
+    live = sorted(payload)
     snap = [t.clone() for t in leaves()]
     cur, active = arena.cur.clone(), arena.active.clone()
-    tok = torch.zeros(8, dtype=torch.int32, device="cuda")
-    tok[live] = torch.tensor([payloads[0].get(r, 0) for r in live], dtype=torch.int32,
-                             device="cuda")
+    tok = torch.zeros(engine.max_slots, dtype=torch.int32, device="cuda")
+    tok[live] = torch.tensor([payload[r] for r in live], dtype=torch.int32, device="cuda")
     replay = engine.dispatch(mid, (seq,), len(live), "decode", slots=live,
-                             payload={r: int(tok[r]) for r in live}).wait()
+                             payload=dict(payload)).wait()
     after_replay = [t.clone() for t in leaves()]
     for t, s in zip(leaves(), snap):
         t.copy_(s)
@@ -1342,17 +1327,8 @@ def phase_graphs(torch, mid, seq, k=8, **overrides):
             and all(torch.equal(a, b) for a, b in zip(after_replay, leaves()))):
         raise AssertionError(f"{mid}: replay vs eager step not bit-identical (max |diff| "
                              f"logits {diff:.3e}, arena {leaf_diff:.3e})")
-    if [t.data_ptr() for t in leaves()] != ptrs:
-        raise AssertionError(f"{mid}: the arena's storage moved")
-    log(f"graphs {mid} seq {seq}: k={k} chunk vs {k} single replays bit-identical "
-        f"(rows {live}, steps {rows_plan}); replay vs eager step bit-identical "
-        f"(logits and every arena leaf); launches per step replay "
-        f"{step_g.launches}, per chunk {chunk_launches}; arena storage unchanged; "
-        f"decode_compiles {engine.stats['decode_compiles']}; eager step + captures "
-        f"{captured_s:.3f} s")
-    del engine, snap, after_chunk, after_replay, chunk, steps
-    gc.collect()
-    torch.cuda.empty_cache()
+    if not bool(torch.isfinite(replay[live]).all()):
+        raise AssertionError(f"{mid}: non-finite replay logits")
 
 
 # ---------------------------------------------------------------------------
@@ -2117,7 +2093,280 @@ def phase_serve_moe(torch):
 
 
 # ---------------------------------------------------------------------------
-# phases 14-15: whisper-large-v3 (encoder-decoder) and qwen2-vl-72b (M-RoPE)
+# phase serve_zoo: the rest of the engine-served zoo at full width
+# ---------------------------------------------------------------------------
+
+
+def attention_at_shapes(torch, report, name, h, kv, d, windows, *, seq=PREFILL_SEQ,
+                        decode=True, previous=False):
+    """Both attention kernels at one model's served shapes against their
+    plain versions in bf16 and float32: flash causal at the prefill
+    buckets B = 1 and 8 x ``seq``, once per entry of ``windows`` (None: a
+    global layer); with ``decode``, decode over the 8-row arena with
+    spread cursors and a dead row, at ZOO_DECODE_SEQ for a global layer
+    and over a ring of the window's slots with -1 sentinels for a
+    windowed one. The bf16 batch-8 shapes are timed beside SDPA and their
+    bound (``previous``: in turns with each kernel's previous design);
+    the records join the kernel rows' ``shapes``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(h * 1000 + d + seq)
+    act = [1, 1, 1, 1, 0, 1, 1, 1]
+    tag = f"{name} H={h} KV={kv} (G {h // kv}) D={d}"
+
+    def decode_case(dtype, window, cursors=None):
+        ring = window is not None
+        s = window if ring else ZOO_DECODE_SEQ
+        if cursors is None:
+            cursors = ([c * s // 1024 for c in (4095, 3000, 1100, 2047, 5000, 1500, 1024, 9000)]
+                       if ring else [2047, 1500, 700, 2000, 100, 1900, 1024, 3])
+        return s, decode_inputs(torch, 8, s, h, kv, d, dtype, gen, cursors=cursors,
+                                active=act, ring=ring)
+
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for w in windows:
+            for b in (1, 8):
+                q = torch.randn((b, seq, h, d), generator=gen, device="cuda").to(dtype)
+                k = torch.randn((b, seq, kv, d), generator=gen, device="cuda").to(dtype)
+                v = torch.randn((b, seq, kv, d), generator=gen, device="cuda").to(dtype)
+                got = fk.flash_attention(q, k, v, causal=True, window=w)
+                want = fk.flash_attention_plain(q, k, v, causal=True, window=w)
+                torch.cuda.synchronize()
+                err = assert_close(f"flash {tag} B={b} S={seq} window={w} {dtype_name}", got,
+                                   want, TOL[dtype_name])
+                log(f"flash {dtype_name} {tag} B={b} S={seq} causal window={w}: "
+                    f"max_abs_err={err:.3e}")
+            if not decode:
+                continue
+            s, (q, ck, cv, cur, pos, valid, a) = decode_case(dtype, w)
+            got = dk.decode_attention(q, ck, cv, cur, pos, valid, a, window=w)
+            want = dk.decode_attention_plain(q, ck, cv, cur, pos, valid, a, window=w)
+            torch.cuda.synchronize()
+            err = assert_close(f"decode {tag} S={s} window={w} {dtype_name}", got, want,
+                               TOL[dtype_name])
+            if bool(got[~a].float().abs().max() != 0):
+                raise AssertionError(f"decode {tag}: a dead row is not exact 0")
+            log(f"decode {dtype_name} {tag} B=8 S={s} "
+                f"[{'ring, -1 sentinels, ' if w else ''}window {w}, a dead row]: "
+                f"max_abs_err={err:.3e}")
+
+    dtype, esz, b = torch.bfloat16, 2, 8
+    flash_rows = report.setdefault("flash_attention", {}).setdefault("shapes", [])
+    decode_rows = report.setdefault("decode_attention", {}).setdefault("shapes", [])
+    for w in windows:
+        # Every window here spans S: flash_case's causal check is the window's.
+        inp, err = flash_case(torch, gen, dtype, b, seq, seq, h, kv, d, True)
+        q, k, v = inp
+        inputs = copies(inp, (q.numel() + 2 * k.numel()) * esz)
+        lib_inputs = [tuple(x.transpose(1, 2).contiguous() for x in i) for i in inputs]
+        pairs = sum(min(i + 1, w or seq) for i in range(seq))
+        flash_rows.append(time_case(
+            f"flash {tag} B={b} S={seq} causal window={w} bf16",
+            lambda q_, k_, v_, w_=w: fk.flash_attention(q_, k_, v_, causal=True, window=w_),
+            lambda q_, k_, v_, w_=w: fk.flash_attention_plain(q_, k_, v_, causal=True,
+                                                              window=w_),
+            lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=True,
+                                                              enable_gqa=True),
+            inputs, lib_inputs, (2 * q.numel() + 2 * k.numel()) * esz,
+            4 * b * h * d * pairs, err,
+            run_o=(lambda q_, k_, v_, w_=w: fk.previous_design(q_, k_, v_, causal=True,
+                                                               window=w_))
+            if previous else None))
+        if not decode:
+            continue
+        s, base = decode_case(dtype, w, cursors=[(w or ZOO_DECODE_SEQ) * 2 - 1] * b)
+        qd, ck, cv, cur, pos, valid, a = base
+        inputs = copies(base, 2 * ck.numel() * esz)
+        run_k = lambda *x, w_=w: dk.decode_attention(*x, window=w_)
+        run_p = lambda *x, w_=w: dk.decode_attention_plain(*x, window=w_)
+        err = assert_close(f"decode {tag} timed window={w}", run_k(*base), run_p(*base),
+                           TOL["bfloat16"])
+        lib_inputs = []
+        for (q_, k_, v_, c_, p_, va_, a_) in inputs:
+            mask = (p_ <= c_[:, None]) & va_ & a_[:, None]
+            if w is not None:
+                mask &= p_ > c_[:, None] - w
+            lib_inputs.append((q_.transpose(1, 2).contiguous(), k_.transpose(1, 2).contiguous(),
+                               v_.transpose(1, 2).contiguous(), mask[:, None, None, :]))
+        n_live = live_slots(cur, pos, valid, a, w)
+        decode_rows.append(time_case(
+            f"decode {tag} B={b} S={s} window={w} bf16 (split plan "
+            f"{dk.plan_splits(b, kv, s, dk._sm_count(qd.device))})", run_k, run_p,
+            lambda q_, k_, v_, m_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_,
+                                                                  enable_gqa=True),
+            inputs, lib_inputs,
+            qd.numel() * esz * 2 + 2 * n_live * kv * d * esz + b * 4 + b * s * 5,
+            4 * n_live * h * d, err,
+            run_o=(lambda *x, w_=w: dk.previous_design(*x, window=w_)) if previous else None))
+
+
+def zoo_inspect(torch, engine, mid, seq):
+    """After a zoo arch is served: the step graph's launches against
+    CALLS_PER_STEP, one replay against the eager step (bit for bit) on
+    rows leased at spread cursors (past gemma3's 1024-slot ring, so it
+    wraps), and the weights' and arena's bytes; a MoE arch's token-expert
+    pairs dropped past capacity."""
+    graph = engine._graphs[("decode", mid, seq)]
+    if graph.launches != CALLS_PER_STEP[mid]:
+        raise AssertionError(f"{mid}: launches per step replay {graph.launches}, expected "
+                             f"{CALLS_PER_STEP[mid]}")
+    rows = engine.alloc_slots(mid, seq, 3, start_pos=seq // 20)
+    rows += engine.alloc_slots(mid, seq, 3, start_pos=seq - seq // 7)
+    gen = torch.Generator().manual_seed(11)
+    vocab = engine.configs[mid].vocab_size
+    payload = {r: int(torch.randint(0, vocab, (1,), generator=gen)) for r in rows}
+    replay_vs_eager(torch, engine, mid, seq, payload)
+    engine.free_slots(mid, seq, rows)
+    if engine.stats["decode_compiles"] != 0:
+        raise AssertionError(f"{mid}: a decode capture after warm-up")
+    out = dict(
+        launches_per_step=dict(graph.launches),
+        weights_bytes=sum(t.numel() * t.element_size() for t in _leaves(engine.params[mid])),
+        arena_bytes=engine.arena_nbytes(mid, seq))
+    if engine.configs[mid].is_moe:
+        out["drops"] = moe_drops(torch, engine, mid, seq)
+    return out
+
+
+def phase_serve_zoo(torch, report):
+    """gemma3-12b, phi4-mini-3.8b, llama3-405b and llama4-maverick at full
+    width, bf16, seed 0, ZOO_LAYERS deep, one arch at a time (each engine,
+    its graphs and the allocator's cache freed before the next): both
+    attention kernels at the arch's shapes, then served by DeepRT through
+    the engine (1 prefill stream at seq 512 and 2 decode streams, 8
+    frames, deadline 6 x (decode + batch-8 prefill WCET)): conservation,
+    no miss, zero decode captures after warm-up, replay = eager bit for
+    bit, launches per step; logs WCETs, weights, arena and peak memory."""
+    from repro_torch.configs.registry import get_config
+
+    for mid, n_layers in ZOO_LAYERS.items():
+        full = get_config(mid).n_layers
+        log(f"serve_zoo {mid}: {n_layers} of {full} layers (full width); device memory "
+            f"allocated before it: {torch.cuda.memory_allocated()} bytes")
+        cfg = get_config(mid)
+        attention_at_shapes(
+            torch, report, mid, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            [None] + ([cfg.sliding_window] if "swa" in cfg.block_pattern else []))
+        seq = ZOO_DECODE_SEQ
+        served = phase_serve(
+            torch, {mid: seq}, {"decode": 2, "prefill": 1}, frames=8, deadline_factor=6.0,
+            overrides={mid: dict(n_layers=n_layers)},
+            inspect=lambda engine, mid=mid: zoo_inspect(torch, engine, mid, seq))
+        log(f"serve_zoo {mid}: weights {served['weights_bytes'] / 1e9:.3f} GB, arena "
+            f"{served['arena_bytes'] / 1e9:.3f} GB, peak {served['peak_mem_bytes'] / 1e9:.3f} "
+            f"GB; WCETs {json.dumps(served['wcet'][mid])}; launches per step "
+            f"{json.dumps(served['launches_per_step'])}"
+            + (f"; dropped token-expert pairs {json.dumps(served['drops'])}"
+               if "drops" in served else ""))
+        log(f"served zoo {mid}: " + json.dumps(served, sort_keys=True))
+        del served
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase multitenant_driver: the port's end-to-end driver at full width
+# ---------------------------------------------------------------------------
+# Streams and frames of each driver run (its CLI's defaults are 8 and 15):
+# cut so that the four runs stay near a minute on the card.
+DRIVER_REQUESTS = 4
+DRIVER_FRAMES = 6
+DRIVER_SEQ = 48  # the driver's prefill categories (its CLI's default)
+
+
+def driver_kernels(torch, report, configs, seq):
+    """The driver's two prefill kernels at the shapes its runs give them,
+    against their plain versions in bf16 and float32: flash causal at
+    granite's heads and wkv6 (f32 decays, no initial state as a prefill
+    has, and with one) at rwkv6's, B = 1 and 8 x ``seq`` (below wkv6's
+    CHUNK, so its sequential design); flash at bf16 batch 8 timed into
+    its row's ``shapes``."""
+    from repro_torch.kernels import wkv6 as wk
+
+    g = configs[MID]
+    attention_at_shapes(torch, report, MID, g.n_heads, g.n_kv_heads, g.resolved_head_dim,
+                        [None], seq=seq, decode=False)
+    r6 = configs[RWKV]
+    h = r6.n_heads
+    k = r6.d_model // h
+    gen = torch.Generator(device="cuda").manual_seed(seq)
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        for b in (1, 8):
+            for with_state in (False, True):
+                r, kk, v, w, u, state = wkv6_inputs(torch, gen, b, seq, h, k, dtype,
+                                                    torch.float32, with_state)
+                got, last = wk.wkv6(r, kk, v, w, u, state)
+                want, want_last = wk.wkv6_plain(r, kk, v, w, u, state)
+                torch.cuda.synchronize()
+                design = "chunked" if wk.uses_chunked(dtype, seq) else "sequential"
+                label = (f"wkv6 {RWKV} B={b} S={seq} H={h} K=V={k} r/k/v {name} w float32 "
+                         f"state={with_state} [{design}]")
+                err = max(assert_close(label, got, want, TOL[name]),
+                          assert_close(label + " (last state)", last, want_last, TOL[name]))
+                log(f"{label}: max_abs_err={err:.3e}")
+
+
+def phase_multitenant_driver(torch, report):
+    """``repro_torch.launch.serve_multitenant.serve`` over full-width
+    granite-3-2b and rwkv6-1.6b (bf16, the driver's prefill categories at
+    seq 48) in the reference driver's four topologies: one device (its
+    DeepRT and BATCH-4 lines), 2 slices, 2 slices behind the gateway with
+    camera sources, 2 slices behind the transport with a Chrome trace.
+    Before the runs, both prefill kernels against their plain versions at
+    the runs' shapes (``driver_kernels``). Each run: conservation, zero
+    decode captures on every slice, both prefill kernels launched (counts
+    set to 0 just before the run and read after it); the trace run writes
+    spans."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_multitenant import serve
+
+    configs = {MID: get_config(MID), RWKV: get_config(RWKV)}
+    driver_kernels(torch, report, configs, DRIVER_SEQ)
+    runs = (("single", {}), ("slices 2", dict(slices=2)),
+            ("slices 2 camera", dict(slices=2, source="camera")),
+            ("slices 2 transport", dict(slices=2, transport=True)))
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kw in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            if kw.get("transport"):
+                kw["trace"] = os.path.join(tmp, "trace.json")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec = serve(configs, requests=DRIVER_REQUESTS, seq=DRIVER_SEQ,
+                        frames=DRIVER_FRAMES, device="cuda", **kw)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            log(f"driver {label}: {time.perf_counter() - t0:.3f} s; launches {launches}; "
+                + json.dumps(rec, sort_keys=True, default=str))
+            if not rec["conserved"]:
+                raise AssertionError(f"driver {label}: conservation failed: {rec['metrics']}")
+            if any(s["decode_compiles"] for s in rec["slices"].values()):
+                raise AssertionError(f"driver {label}: decode captures {rec['slices']}")
+            if rec["metrics"]["completed_frames"] < 1:
+                raise AssertionError(f"driver {label}: no frame completed")
+            for name in ("flash_attention", "wkv6"):
+                if launches[name] < 1:
+                    raise AssertionError(f"driver {label}: kernel {name} was not launched")
+            if label == "single" and "batch4" not in rec:
+                raise AssertionError("driver single: no BATCH-4 line")
+            if kw.get("trace"):
+                with open(kw["trace"]) as f:
+                    events = len(json.load(f)["traceEvents"])
+                if not rec.get("spans", 0) > 0 or events < 1:
+                    raise AssertionError(f"driver {label}: trace spans {rec.get('spans')}, "
+                                         f"{events} events written")
+
+
+# ---------------------------------------------------------------------------
+# phases 16-17: whisper-large-v3 (encoder-decoder) and qwen2-vl-72b (M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -2146,18 +2395,26 @@ def text_positions(torch, b, s, device="cuda"):
     return torch.arange(s, dtype=torch.int32, device=device).expand(3, b, s).contiguous()
 
 
-def time_case(label, run_k, run_p, run_lib, inputs, lib_inputs, nbytes, flops, err):
+def time_case(label, run_k, run_p, run_lib, inputs, lib_inputs, nbytes, flops, err,
+              run_o=None):
     """Device ms of the kernel and of the library call (CUDA-graph replays
-    over ``inputs``), the plain version's eager ms, and the bound; logged
-    and returned as a record."""
-    ms = device_ms(run_k, inputs)
+    over ``inputs``), the plain version's eager ms, and the bound; with
+    ``run_o`` (a previous design) the kernel is timed in turns with it.
+    Logged and returned as a record."""
+    rec = {}
+    if run_o is None:
+        ms = device_ms(run_k, inputs)
+    else:
+        ms, rec["previous_ms"] = in_turns(run_k, run_o, inputs)
     plain_ms = time_ms(run_p, inputs, iters=3, warmup=1)
     library_ms = device_ms(run_lib, lib_inputs)
     bound_ms, bound_by = bound(nbytes, flops)
-    log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {flops} flops)")
+    previous = f", previous design {rec['previous_ms']:.4f} ms" if rec else ""
+    log(f"{label}: kernel {ms:.4f} ms{previous}, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
+        f"{flops} flops)")
     return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **rec)
 
 
 def copies(inp, per_copy):
@@ -3767,6 +4024,10 @@ def main() -> int:
         phase_transport(torch)
     with Phase("serve_moe"):
         phase_serve_moe(torch)
+    with Phase("serve_zoo"):
+        phase_serve_zoo(torch, report)
+    with Phase("multitenant_driver"):
+        phase_multitenant_driver(torch, report)
     with Phase("encdec"):
         phase_encdec(torch, report)
     with Phase("mrope"):

@@ -11,6 +11,8 @@
   python3 scripts/chip_measure.py sharding    # chip_smoke.py's phase sharding
   python3 scripts/chip_measure.py dryrun OUT  # every dry-run cell, both meshes,
                                               # JSON under OUT, the table printed
+  python3 scripts/chip_measure.py zoo [ARCH..]  # phases serve_zoo and
+                                              # multitenant_driver alone
 
 ``faults N`` builds the kernels once, then runs chip_smoke.py's phase
 ``faults`` N times in this process and prints one line per run (passed,
@@ -51,6 +53,11 @@ run on the host's CPU over fake tensors), each cell under a time limit
 (a cell cut by it is reported as such), and prints
 ``roofline.analysis.roofline_table`` over the JSON files it wrote. It
 needs no GPU (it does not build the kernels).
+
+``zoo`` runs chip_smoke.py's phases ``serve_zoo`` (the archs named, or
+all four of ``ZOO_LAYERS``) and ``multitenant_driver`` (only when no arch
+is named) and prints the attention kernels' timed shape records as one
+JSON line.
 
 Prints the card's name and power limit first. Needs a GPU; exits
 non-zero on any failure.
@@ -251,6 +258,20 @@ def main() -> int:
         return 0
     if what == "rglru":
         return rglru(torch)
+    if what == "zoo":
+        import json
+
+        report: dict = {}
+        archs = sys.argv[2:]
+        if archs:
+            cs.ZOO_LAYERS = {a: cs.ZOO_LAYERS[a] for a in archs}
+        with cs.Phase("serve_zoo"):
+            cs.phase_serve_zoo(torch, report)
+        if not archs:
+            with cs.Phase("multitenant_driver"):
+                cs.phase_multitenant_driver(torch, report)
+        print(json.dumps({n: r.get("shapes", []) for n, r in report.items()}))
+        return 0
     if what == "sharding":
         with cs.Phase("sharding"):
             cs.phase_sharding(torch, {})

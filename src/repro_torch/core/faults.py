@@ -222,7 +222,10 @@ class CompletionWatchdog:
         self._eid = None
         self._closed = False
 
-    def started(self, job, expected: float) -> None:
+    def started(self, job, expected: float, start: Optional[float] = None) -> None:
+        """Arm the deadline for ``job``; its clock runs from ``start`` (the
+        instant the device reached the job, which a wall-clock loop may
+        read after it), or from now."""
         if self._closed:
             return
         if self._outstanding is not None:
@@ -230,7 +233,7 @@ class CompletionWatchdog:
                 "CompletionWatchdog: overlapping submits on a sequential device"
             )
         self._token += 1
-        start = self.loop.now
+        start = self.loop.now if start is None else start
         self._outstanding = (self._token, job, expected, start)
         self._arm(self._token, start + self.config.deadline_for(expected))
 

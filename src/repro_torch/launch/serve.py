@@ -3,10 +3,12 @@
 Builds an InferenceEngine over reduced configs on ``--device`` (CUDA by
 default), profiles it (paper §4.1), then serves a synthesized
 multi-tenant request trace through the full DeepRT stack (admission ->
-DisBatcher -> EDF -> engine) on a wall clock.
+DisBatcher -> EDF -> engine) on a wall clock. ``--archs`` takes every
+arch the reference's launcher serves: the zoo less whisper-large-v3 and
+qwen2-vl-72b, which no engine serves (``MODEL_API_ONLY``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \\
-      --requests 12 --frames 20
+      --archs gemma3-12b,llama4-maverick-400b-a17b --requests 12 --frames 20
 """
 from __future__ import annotations
 
@@ -16,10 +18,14 @@ from repro_torch.configs.registry import tiny
 from repro_torch.core import TraceSpec, generate_trace
 from repro_torch.serving.batcher_bridge import build_live_scheduler
 
-PORTED_ARCHS = ("granite-3-2b", "rwkv6-1.6b", "recurrentgemma-9b", "mixtral-8x7b")
+# The engine serves token streams. whisper-large-v3 (its forward takes
+# audio frames) and qwen2-vl-72b (its forward takes M-RoPE position ids)
+# run through the model API instead (``repro_torch.models.model_for``):
+# the reference's engine cannot serve them either.
+MODEL_API_ONLY = ("whisper-large-v3", "qwen2-vl-72b")
 
 
-def main() -> None:
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--archs", default="granite-3-2b,rwkv6-1.6b")
     ap.add_argument("--seq", type=int, default=64)
@@ -28,12 +34,14 @@ def main() -> None:
     ap.add_argument("--mean-deadline", type=float, default=0.5)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     arch_ids = args.archs.split(",")
-    unported = [a for a in arch_ids if a not in PORTED_ARCHS]
-    if unported:
-        ap.error(f"--archs {unported} not ported yet; ported: {list(PORTED_ARCHS)}")
+    refused = [a for a in arch_ids if a in MODEL_API_ONLY]
+    if refused:
+        ap.error(f"--archs {refused}: the engine serves token streams, and neither it "
+                 "nor the reference's engine can serve these; run them through the "
+                 "model API (repro_torch.models.model_for)")
     configs = {a: tiny(a) for a in arch_ids}
     categories = [(a, (args.seq,), "prefill") for a in arch_ids]
     print(f"profiling engine on {args.device} (paper §4.1 offline pass)...")
@@ -68,6 +76,8 @@ def main() -> None:
         f"miss_rate={m.miss_rate:.3f} jobs={m.job_count} "
         f"mean_batch={m.mean_batch:.2f} throughput={m.throughput:.1f} fps"
     )
+    sched.device.close()
+    return m
 
 
 if __name__ == "__main__":

@@ -26,8 +26,9 @@ seconds to it, which is what feeds live WCET re-profiling.
 
 The clock of both starts when the device reaches the job. With a
 ``mark_fn`` (the engine's ``stream_mark``: a CUDA event recorded on the
-stream ahead of the job's launches) the waiter first waits for that
-mark and then posts the start to the loop: slices that share one CUDA
+stream ahead of the job's launches) the waiter watches that mark while
+the loop's thread enqueues the job, reads the instant it completes (both
+clocks start there) and posts the start to the loop: slices that share one CUDA
 stream queue behind each other's work, and that wait is not time the
 device spent on this job (a reference slice is its own device and never
 waits so). A job the stream never reaches is still caught: the job at
@@ -53,11 +54,14 @@ class _Inflight:
     """One submitted job travelling from the loop to the waiter and back."""
 
     __slots__ = ("job", "handle", "on_complete", "job_bytes", "start", "exec_time", "began",
-                 "released")
+                 "released", "dispatched")
 
     def __init__(self, job, handle, on_complete, job_bytes, start, exec_time, began=None):
         self.job = job
-        self.handle = handle
+        self.handle = handle  # None until the job is enqueued (or if that raised)
+        # Set once ``submit`` is done with the job, whether its dispatch
+        # returned a handle or raised.
+        self.dispatched = threading.Event()
         self.on_complete = on_complete
         self.job_bytes = job_bytes
         self.start = start  # the clock's start: submit, then the mark's instant
@@ -161,14 +165,23 @@ class AsyncDevice:
         self.resident_bytes += job_bytes
         self.peak_bytes = max(self.peak_bytes, self.resident_bytes)
         began = self.mark_fn() if self.mark_fn is not None else None
-        handle = self.dispatch_fn(job)  # returns immediately (stream-ordered)
+        item = _Inflight(job, None, on_complete, job_bytes, start, exec_time, began)
+        # The waiter watches the mark while this thread enqueues the job:
+        # the stream reaches a host-bound eager step long before its
+        # enqueue ends, and the job's clock starts there.
+        self._inbox.put(item)
+        try:
+            handle = self.dispatch_fn(job)  # returns immediately (stream-ordered)
+        except BaseException:
+            item.dispatched.set()  # no handle: the waiter drops the job
+            raise
         if self.watchdog is not None and began is None:
             self.watchdog.started(job, exec_time)
         self.loop.hold()  # keep run() alive while the heap may be empty
-        item = _Inflight(job, handle, on_complete, job_bytes, start, exec_time, began)
+        item.handle = handle
         with self._lock:
             self._inflight = item
-        self._inbox.put(item)
+        item.dispatched.set()
 
     # ----- waiter thread --------------------------------------------------
     def _wait_loop(self) -> None:
@@ -177,16 +190,26 @@ class AsyncDevice:
             if item is None:
                 return
             err = None
-            try:
-                if item.began is not None:
+            reached = None
+            if item.began is not None:
+                try:
                     item.began.synchronize()  # the stream has reached the job
-                    self.loop.post(
-                        lambda it=item: self._begin(it),
-                        priority=getattr(self.loop, "PRIO_COMPLETE", 1),
-                    )
-                item.handle.wait()
-            except Exception as e:  # re-raised on the loop thread
-                err = self.last_error = e
+                    reached = self.loop.now
+                except Exception as e:  # re-raised on the loop thread
+                    err = self.last_error = e
+            item.dispatched.wait()
+            if item.handle is None:
+                continue  # its dispatch raised on the loop's thread
+            if reached is not None:
+                self.loop.post(
+                    lambda it=item, t=reached: self._begin(it, t),
+                    priority=getattr(self.loop, "PRIO_COMPLETE", 1),
+                )
+            if err is None:
+                try:
+                    item.handle.wait()
+                except Exception as e:  # re-raised on the loop thread
+                    err = self.last_error = e
             self.loop.post(
                 lambda it=item, x=err: self._complete(it, x),
                 priority=getattr(self.loop, "PRIO_COMPLETE", 1),
@@ -207,13 +230,16 @@ class AsyncDevice:
         self.loop.release()
 
     # ----- loop-thread begin and completion ------------------------------
-    def _begin(self, item: _Inflight) -> None:
-        """The stream reached ``item``: its clocks start now. Posted before
-        its completion by the same waiter, at the same priority, so it
-        always runs first."""
-        item.start = self.loop.now
+    def _begin(self, item: _Inflight, reached: float) -> None:
+        """The stream reached ``item`` at ``reached`` (read by the waiter
+        as the mark completed): the measured and the watchdog's clocks
+        start there, not when the loop's thread gets to this post (it may
+        still be enqueueing that very job, or another slice's). Posted
+        before the job's completion by the same waiter, at the same
+        priority, so it always runs first."""
+        item.start = reached
         if self.watchdog is not None:
-            self.watchdog.started(item.job, item.exec_time)
+            self.watchdog.started(item.job, item.exec_time, start=reached)
 
     def _complete(self, item: _Inflight, err: Optional[Exception] = None) -> None:
         now = self.loop.now

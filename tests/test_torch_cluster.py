@@ -358,14 +358,30 @@ def _converted(jslices):
                                            device="cpu")}
 
 
+def _frame_done(slices, rid, index):
+    return any((rid, index) in sl.scheduler.metrics.frame_records for sl in slices.values())
+
+
 def _failover(core, build, **kw):
     cluster, slices = build({MID: kw.pop("cfg")}, CATS, slice_names=("s0", "s1"),
                             batch_sizes=(1, 2, 4), profile_runs=2, nonrt_cap=1, **kw)
+    # The JAX engine compiles its arena-row reset at the first lease
+    # (half a second idle, longer on a loaded host): lease and free a
+    # row on each slice first, so that no stream starts before another.
+    for sl in slices.values():
+        sl.engine.free_slots(MID, SEQ_DEC, sl.engine.alloc_slots(MID, SEQ_DEC, 1))
     cat = core.Category(MID, (SEQ_DEC,))
-    reqs = [core.Request(category=cat, period=0.2, relative_deadline=0.4, n_frames=12)
+    start = cluster.loop.now + 0.1
+    reqs = [core.Request(category=cat, period=0.2, relative_deadline=0.4, n_frames=12,
+                         start_time=start)
             for _ in range(4)]
     admitted = [cluster.submit_request(r) for r in reqs]
-    cluster.run(until=cluster.loop.now + 0.5)
+    # The slice fails once every placed stream has completed frame 1: an
+    # event of the streams, not an instant of the host's clock (bounded
+    # by the streams' last arrival, should a frame never complete).
+    while (cluster.loop.now < reqs[0].end_time
+           and not all(_frame_done(slices, rid, 1) for rid in cluster.placement)):
+        cluster.run(until=cluster.loop.now + 0.01)
     by_slice = {}
     for rid, name in cluster.placement.items():
         by_slice.setdefault(name, []).append(rid)
@@ -377,8 +393,9 @@ def _failover(core, build, **kw):
     dead_stats = dict(slices[dead].engine.stats)
     cluster.run()
     # Which slice a stream lands on follows each slice's own profiled
-    # WCETs (timings), and how many frames a tail keeps follows the wall
-    # clock: the twins compare the accounting's structure, per victim.
+    # WCETs (timings), and how many frames a tail keeps follows the
+    # loop's pace: the twins compare the accounting's structure, per
+    # victim.
     # Whether a parked tail is admitted before it expires follows the
     # survivor's WCETs too: both count as displaced, each in one ledger.
     victims = by_slice[dead]

@@ -63,8 +63,11 @@ def test_kernels_match_plain_on_card(cuda, dtype):
         "wkv6_bwd": 0, "rglru_scan": 0, "rglru_bwd": 0}
 
 
-# (B, S, KV, G, D, window, ring): D in {8, 16, 64, 256}, S in {1, 63, 509,
-# 2048}, G in {1, 4, 16, 64}; granite's and recurrentgemma's served shapes.
+# (B, S, KV, G, D, window, ring): D in {8, 16, 64, 128, 256}, S in {1, 63,
+# 509, 1024, 2048}, G in {1, 2, 3, 4, 5, 16, 64}; the served shapes of
+# granite and recurrentgemma, then of phi4-mini (G 3), llama4-maverick
+# (G 5), llama3-405b (G 16 at D 128) and gemma3-12b (G 2 at D 256: its
+# 1024-slot local rings and its full caches).
 DECODE_CASES = [
     (3, 1, 2, 4, 16, None, False),
     (3, 63, 1, 16, 8, None, False),
@@ -74,6 +77,11 @@ DECODE_CASES = [
     (2, 509, 1, 64, 256, None, False),
     (3, 2048, 4, 1, 64, 300, True),
     (2, 63, 2, 64, 16, 13, True),
+    (8, 2048, 8, 3, 128, None, False),
+    (8, 2048, 8, 5, 128, None, False),
+    (8, 2048, 8, 16, 128, None, False),
+    (8, 1024, 8, 2, 256, 1024, True),
+    (8, 2048, 8, 2, 256, None, False),
 ]
 
 
@@ -138,6 +146,10 @@ FLASH_CASES = [
     (1, 2048, 4, 4, 64, True, 300),
     (2, 100, 8, 2, 32, False, 23),
     (8, 512, 32, 8, 64, True, None),
+    (8, 512, 24, 8, 128, True, None),
+    (8, 512, 40, 8, 128, True, None),
+    (2, 512, 128, 8, 128, True, None),
+    (8, 512, 16, 8, 256, True, 1024),
 ]
 
 
@@ -437,9 +449,12 @@ def test_recurrent_engine_kernel_path_matches_dense_on_card(cuda, arch, kw):
 # One model per block kind: granite (attn), recurrentgemma at 5 layers
 # (rglru and an swa ring, with a tail after it), rwkv6 (rwkv); and the
 # MoE FFNs: mixtral (swa, top-2 of 8 experts, so 8 arena rows overfill
-# an expert's capacity of 4) and llama4 (attn, top-1 plus a shared expert).
+# an expert's capacity of 4) and llama4 (attn, top-1 plus a shared expert);
+# and the other engine-served dense archs: gemma3 (five 16-slot swa rings
+# and a full cache), phi4-mini and llama3.
 GRAPH_ARCHS = {"granite-3-2b": {}, "recurrentgemma-9b": {"n_layers": 5}, "rwkv6-1.6b": {},
-               "mixtral-8x7b": {"n_experts": 8}, "llama4-maverick-400b-a17b": {}}
+               "mixtral-8x7b": {"n_experts": 8}, "llama4-maverick-400b-a17b": {},
+               "gemma3-12b": {}, "phi4-mini-3.8b": {}, "llama3-405b": {}}
 GSEQ = 24  # recurrentgemma's 16-slot ring wraps for rows near the end
 
 

@@ -2,7 +2,12 @@
 
 Both engines serve tiny granite-3-2b with the SAME parameters (the JAX
 engine's, converted by ``repro_torch.interop``); prefill outputs and
-slot-arena decode logits must agree (logits 2e-3, live rows only).
+slot-arena decode logits must agree (logits 2e-3, live rows only). The
+prefill and decode parity also runs for the zoo's other engine-served
+dense and MoE archs: gemma3-12b (ring and full caches in one arena),
+phi4-mini-3.8b, llama3-405b and llama4-maverick (top-1 plus a shared
+expert, every row live so both arenas hold the same state: a MoE step
+couples its rows through capacity).
 Also: the allocator's alloc/free/reset, zero decode step builds across
 batch sweeps after warm-up, and the staging ring's consumer guard.
 """
@@ -22,50 +27,71 @@ MID = "granite-3-2b"
 SEQ = 16
 
 
-@pytest.fixture(scope="module")
-def engines():
-    jeng = JEngine({MID: jtiny(MID)}, max_slots=4)
+LLAMA4 = "llama4-maverick-400b-a17b"
+SERVED = (MID, "gemma3-12b", "phi4-mini-3.8b", "llama3-405b", LLAMA4)
+
+
+def _engine_pair(arch):
+    jeng = JEngine({arch: jtiny(arch)}, max_slots=4)
     params = interop.params_from_numpy(
-        tiny(MID), jax.tree.map(np.asarray, jeng.params[MID]), device="cpu")
-    teng = InferenceEngine({MID: tiny(MID)}, max_slots=4, device="cpu", params={MID: params})
+        tiny(arch), jax.tree.map(np.asarray, jeng.params[arch]), device="cpu")
+    teng = InferenceEngine({arch: tiny(arch)}, max_slots=4, device="cpu",
+                           params={arch: params})
     return jeng, teng
 
 
-def test_prefill_outputs_match_jax(engines):
-    jeng, teng = engines
+@pytest.fixture(scope="module")
+def engines():
+    return _engine_pair(MID)
+
+
+@pytest.fixture(scope="module", params=SERVED)
+def served(request):
+    """(arch, JAX engine, port engine) on one draw of the JAX engine's
+    parameters."""
+    return (request.param, *_engine_pair(request.param))
+
+
+def test_prefill_outputs_match_jax(served):
+    arch, jeng, teng = served
     toks = np.random.default_rng(0).integers(0, 256, size=(3, SEQ)).astype(np.int32)
-    jout = np.asarray(jeng.dispatch(MID, (SEQ,), 3, "prefill", payload=toks).wait())
-    h = teng.dispatch(MID, (SEQ,), 3, "prefill", payload=toks)
+    jout = np.asarray(jeng.dispatch(arch, (SEQ,), 3, "prefill", payload=toks).wait())
+    h = teng.dispatch(arch, (SEQ,), 3, "prefill", payload=toks)
     tout = h.wait().numpy()
     assert h.bucket_batch == 4 and tout.shape == jout.shape == (4,)
     np.testing.assert_array_equal(tout, jout)
 
 
-def test_slot_arena_decode_logits_match_jax(engines):
-    jeng, teng = engines
+def test_slot_arena_decode_logits_match_jax(served):
+    """Rows 0-2 leased at cursor 2, row 1 idle on odd steps, row 3 never
+    leased; for llama4 all four rows leased and stepped, so that both
+    arenas hold the same state for the step's expert capacity."""
+    arch, jeng, teng = served
     seq = 24
+    moe = tiny(arch).is_moe
+    n = 4 if moe else 3
     rng = np.random.default_rng(1)
-    js = jeng.alloc_slots(MID, seq, 3, start_pos=2)
-    ts = teng.alloc_slots(MID, seq, 3, start_pos=2)
-    assert js == ts == (0, 1, 2)
-    arena = teng.arena(MID, seq)
+    js = jeng.alloc_slots(arch, seq, n, start_pos=2)
+    ts = teng.alloc_slots(arch, seq, n, start_pos=2)
+    assert js == ts == tuple(range(n))
+    arena = teng.arena(arch, seq)
     cache_ptr = arena.cache["super"][0]["k"].data_ptr()
     for step in range(5):
         payload = {s: int(rng.integers(0, 256)) for s in ts}
-        rows = None if step % 2 == 0 else [0, 2]  # row 1 idle on odd steps
-        jl = np.asarray(jeng.dispatch(MID, (seq,), 3, "decode", slots=js,
+        rows = None if step % 2 == 0 or moe else [0, 2]  # row 1 idle on odd steps
+        jl = np.asarray(jeng.dispatch(arch, (seq,), n, "decode", slots=js,
                                       payload=payload, step_rows=rows).wait())
-        tl = teng.dispatch(MID, (seq,), 3, "decode", slots=ts, payload=payload,
+        tl = teng.dispatch(arch, (seq,), n, "decode", slots=ts, payload=payload,
                            step_rows=rows).wait()
         live = list(ts) if rows is None else rows
         np.testing.assert_allclose(tl.numpy()[live], jl[live], atol=2e-3, rtol=2e-3)
         np.testing.assert_array_equal(arena.cur.numpy(),
-                                      np.asarray(jeng.arena(MID, seq).cur))
+                                      np.asarray(jeng.arena(arch, seq).cur))
     # One resident arena, updated in place across steps.
-    assert teng.arena(MID, seq).cache["super"][0]["k"].data_ptr() == cache_ptr
-    assert arena.cur.tolist() == [7, 5, 7, 0]
-    jeng.free_slots(MID, seq, js)
-    teng.free_slots(MID, seq, ts)
+    assert teng.arena(arch, seq).cache["super"][0]["k"].data_ptr() == cache_ptr
+    assert arena.cur.tolist() == ([7, 7, 7, 7] if moe else [7, 5, 7, 0])
+    jeng.free_slots(arch, seq, js)
+    teng.free_slots(arch, seq, ts)
 
 
 def test_cursor_clamps_at_cache_edge_like_jax(engines):

@@ -4,9 +4,9 @@ Slices of one card share one CUDA stream, so a job can wait behind
 other slices' work before the device reaches it. ``AsyncDevice`` with a
 ``mark_fn`` (on the card: a CUDA event recorded ahead of the job's
 launches) starts the job's watchdog and measured clocks when that mark
-completes, so the wait is not counted as time the device spent on the
-job; without a mark the clock starts at submit, as before. Here the
-marks and handles are fakes on the wall clock, and the watchdog's
+completes, however late the loop runs that start, so the wait is not
+counted as time the device spent on the job; without a mark the clock
+starts at submit, as before. Here the marks and handles are fakes on the wall clock, and the watchdog's
 signals go to the real ``SliceHealthMonitor`` (hung past
 ``hang_after``: quarantined) over a one-slice stand-in for the cluster.
 """
@@ -59,19 +59,25 @@ class _Cluster:
         self.drift = drift
 
 
-def _run(mark_at, done_at, use_mark=True, throttle=None, hold_loop=None):
+def _run(mark_at, done_at, use_mark=True, throttle=None, hold_loop=None, enqueue=0.0):
     """One job through AsyncDevice under the armed watchdog; ``mark_at``
     and ``done_at`` are seconds after submit (None: never); ``hold_loop``
     (at, seconds) blocks the loop's thread in a callback, as closing a
-    wedged slice's device does. Returns (monitor, completions, measured
-    (expected, actual) pairs, the submit instant on the loop's clock)."""
+    wedged slice's device does; ``enqueue``: seconds the dispatch holds
+    the loop's thread, as a host-bound eager step does. Returns
+    (monitor, completions, measured (expected, actual) pairs, the submit
+    instant on the loop's clock)."""
     loop = P.WallClock()
     cluster = _Cluster(loop)
     monitor = P.SliceHealthMonitor(cluster, CFG)
     wedge = threading.Event()
     t0 = time.perf_counter()
     at = lambda s: None if s is None else t0 + s
-    dev = AsyncDevice(loop, dispatch_fn=lambda job: _At(at(done_at), wedge),
+    def dispatch(job):
+        time.sleep(enqueue)
+        return _At(at(done_at), wedge)
+
+    dev = AsyncDevice(loop, dispatch_fn=dispatch,
                       mark_fn=(lambda: _At(at(mark_at), wedge)) if use_mark else None)
     dev.watchdog = P.CompletionWatchdog(
         loop, CFG, on_overdue=lambda job, e, el: monitor.note_overdue("s", job, e, el))
@@ -149,6 +155,24 @@ def test_a_throttled_job_behind_a_late_stream_is_late(reach):
     assert "late completion" in monitor.transitions[0][4]
 
 
+def test_a_throttled_job_reached_while_the_loop_is_held_is_late():
+    # The loop's thread is held from 0.01 s to 0.13 s after submit (as
+    # while it enqueues another slice's eager job), across the instant
+    # the stream reaches the job (0.02 s), so the loop runs the job's
+    # begin post at 0.13 s. The watchdog's clock still starts at 0.02 s:
+    # the job is overdue as soon as the loop is free, then completes late
+    # at 0.20 s, and the slice turns suspect. Timed from the post, the
+    # deadline (0.23 s) would fall after the completion: one late
+    # signal, no transition.
+    monitor, done, measured, _ = _run(0.02, 0.02 + RUN, throttle=dict(factor=4.0, extra=0.16),
+                                      hold_loop=(0.01, 0.12))
+    assert len(done) == 1
+    (_expected, actual), = measured
+    assert actual >= 0.18
+    assert [(old, new) for _t, _n, old, new, _r in monitor.transitions] == [
+        (P.HEALTHY, P.SUSPECT)]
+
+
 def test_a_held_loop_does_not_turn_a_throttled_job_into_a_hang():
     # The loop's thread is held from 0.05 s to 0.55 s after submit. The
     # throttled job completes at 0.18 s, inside the hold, so its first
@@ -162,3 +186,45 @@ def test_a_held_loop_does_not_turn_a_throttled_job_into_a_hang():
     (_expected, actual), = measured
     assert actual >= 0.5
     assert monitor.transitions == []
+
+
+def test_the_measured_clock_starts_where_the_stream_reached_the_job():
+    # The loop's thread is held (as while it enqueues a long eager job)
+    # from before the mark completes until after the job is done: the
+    # begin post runs late, right before the completion, yet the measured
+    # time still runs from the mark's instant, not from the post.
+    # The mark completes at 0.1 s, the loop runs its post at 0.35 s:
+    # timed from the post, the job would read about 0.
+    _, done, measured, _ = _run(0.1, 0.1 + RUN, hold_loop=(0.05, 0.3))
+    assert len(done) == 1
+    (_expected, actual), = measured
+    assert actual >= 0.15
+
+
+def test_the_measured_clock_counts_the_jobs_own_enqueue():
+    # The stream reaches the job at once, and the dispatch holds the
+    # loop's thread 0.2 s enqueueing it (an eager step): the job's time
+    # runs from the mark, through its enqueue, to its completion.
+    # Timed from the end of the enqueue it would read about 0.05 s; the
+    # margin covers the waiter's wake-up on a loaded host.
+    _, done, measured, _ = _run(0.0, 0.25, enqueue=0.2)
+    assert len(done) == 1
+    (_expected, actual), = measured
+    assert actual >= 0.15
+
+
+def test_a_dispatch_that_raises_leaves_no_job_to_the_waiter():
+    # The waiter holds the job's mark before the dispatch runs; a
+    # dispatch that raises must leave it nothing to wait on, so the
+    # device still closes cleanly (no wedged waiter) and holds no loop.
+    loop = P.WallClock()
+
+    def dispatch(job):
+        raise ValueError("enqueue failed")
+
+    dev = AsyncDevice(loop, dispatch_fn=dispatch, mark_fn=lambda: _At(time.perf_counter()))
+    with pytest.raises(ValueError, match="enqueue failed"):
+        dev.submit("job", EXPECTED, lambda job, t: None)
+    dev.close()
+    assert not dev.wedged and not dev._waiter.is_alive()
+    loop.run(until=loop.now + 0.1)  # returns: no hold was taken

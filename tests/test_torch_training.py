@@ -1,5 +1,5 @@
 """The port's training slice against the JAX package, at tiny sizes on the
-CPU: losses and gradients of seven model families, AdamW, the data
+CPU: losses and gradients of the ten architectures, AdamW, the data
 pipeline, int8 compression, train steps, checkpoints of a train state and
 the train launcher.
 
@@ -45,7 +45,8 @@ from repro_torch.training.data import DataConfig, SyntheticTokens
 KEY = jax.random.PRNGKey(0)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("granite-3-2b", "gemma3-12b", "mixtral-8x7b", "qwen2-vl-72b", "whisper-large-v3",
-         "rwkv6-1.6b", "recurrentgemma-9b")
+         "rwkv6-1.6b", "recurrentgemma-9b", "phi4-mini-3.8b", "llama3-405b",
+         "llama4-maverick-400b-a17b")
 B, S, T_ENC = 2, 24, 20
 
 
@@ -116,8 +117,11 @@ def _grad_tree(loss, params):
 # the reference's own float32 gradient differs from its result with 64-bit
 # types enabled (``jax.enable_x64``) by 2.1e-3 (granite's: 3.7e-4), and the
 # port's by 2.4e-3. whisper: the cross-attention query bias's gradient is a
-# cancellation (max 1.6e-3, the port 2.7e-7 off, 1.7e-4 of it).
-GRAD_TOL = {"gemma3-12b": 5e-3, "whisper-large-v3": 1e-3}
+# cancellation (max 1.6e-3, the port 2.7e-7 off, 1.7e-4 of it). tiny
+# llama3 (rope theta 5e5, untied head): the port's float32 embed gradient
+# is 1.5e-4 of its max from the port's own float64 gradient (wk 1.4e-4),
+# the reference's 4.9e-5, the two float32 results 2.0e-4 apart (wk 1.8e-4).
+GRAD_TOL = {"gemma3-12b": 5e-3, "whisper-large-v3": 1e-3, "llama3-405b": 3e-4}
 
 
 def _assert_grads_close(got_tree, want_tree, tol=1e-4):
