@@ -59,9 +59,14 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 6. serve   — full granite-3-2b (40 layers, bf16, random weights from a
              seed) served by DeepRT through build_live_scheduler, one
              prefill and one decode category; checks admission,
-             conservation, no miss, zero decode captures after warm-up,
-             and that both attention kernels launched while serving.
-             Decode steps are CUDA-graph replays.
+             conservation, no miss, zero decode and zero prefill captures
+             after warm-up, and that both attention kernels launched while
+             serving. Decode steps and prefill buckets are CUDA-graph
+             replays: per model one prefill replay at batch 1 and at batch
+             8 against the eager body on the same tokens, bit for bit (the
+             next tokens, and the last position's logits through a
+             last_logits graph captured the same way). Phases 7, 8, 13 and
+             14 serve through the same code and make the same checks.
 7. serve_multitenant — the main path: the same over full granite-3-2b,
              rwkv6-1.6b and recurrentgemma-9b from one engine and one
              DeepRT, a prefill and a decode category per model, with all
@@ -144,9 +149,17 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              BATCH-4 lines, 2 slices, 2 slices behind the ingest gateway
              with camera sources, 2 slices behind the datagram transport
              with a Chrome trace written to a temporary file. Each run:
-             conservation, zero decode captures on every slice, flash and
-             wkv6 launched; the trace run wrote spans.
-16. encdec — whisper-large-v3 through the model API (the reference's
+             conservation, zero decode and zero prefill captures on every
+             slice, flash and wkv6 launched, and on each live slice's
+             engine one prefill replay per model at batch 1 and 8 against
+             the eager body, bit for bit; logs each slice's host stall a
+             job and the run's peak memory; the trace run wrote spans.
+16. examples — `python -m repro_torch.launch.quickstart` and
+             `... cluster_sim` as functions: the virtual clock, no device;
+             logs their lines and seconds; fails unless quickstart's
+             admitted frames all met their deadlines and cluster_sim
+             placed 39 of its 40 requests.
+17. encdec — whisper-large-v3 through the model API (the reference's
              engine does not serve it): both attention kernels at its
              shapes against their plain versions (flash non-causal over
              1500 frames, causal, and cross at S_kv = 1500; decode over
@@ -161,7 +174,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              port's CheckpointManager (async) and restored onto the card,
              torch.equal per leaf; logs the save stall, write and restore
              times and both kernels' launches, by shape.
-17. mrope — qwen2-vl-72b through the model API, MROPE_LAYERS (24) of its
+18. mrope — qwen2-vl-72b through the model API, MROPE_LAYERS (24) of its
              80 layers at full width: flash on Qwen2-VL position ids (an
              image's 256 tokens share one temporal position) and decode at
              its heads against their plain versions, timed with SDPA (an
@@ -171,7 +184,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              on them and 32 decode steps at the default mrope_position,
              kernel against dense; on text-only positions, decode against
              the teacher-forced forward.
-18. train — training. (a) The flash backward
+19. train — training. (a) The flash backward
              kernel against its plain version on the kernel's own O and
              LSE (and the forward's LSE against its plain one), two calls
              torch.equal: granite-3-2b's training shape (B = 8, S = 1024,
@@ -223,7 +236,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              (`python -m repro_torch.launch.train --tiny`) crashing at step
              7 and resuming from step 5, its final state digest equal to
              a straight run's; the launcher trains on the (1, 1) host mesh.
-19. sharding — the host mesh (`launch/mesh.make_host_mesh`: (1, 1)
+20. sharding — the host mesh (`launch/mesh.make_host_mesh`: (1, 1)
              ("data", "model") over cuda:0 on NCCL); granite-3-2b at full
              width (40 layers, TRAIN_BATCH x TRAIN_SEQ, remat on) takes 3
              AdamW steps unmeshed and 3 on the mesh (state laid out by
@@ -1015,9 +1028,11 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
     stream's deadline is ``deadline_factor`` x the sum over the models of
     one decode step plus the largest prefill (profiled WCETs), its period
     half that. Checks admission of every category, conservation, zero
-    decode captures after warm-up, that every kernel the models run
-    was launched while serving, and well-formed outputs. Returns the
-    served run's record and launch counts.
+    decode and prefill captures after warm-up, that every kernel the
+    models run was launched while serving, each model's prefill replays
+    at batch 1 and 8 against the eager body (``prefill_graph_checks``),
+    and well-formed outputs. Returns the served run's record and launch
+    counts.
 
     ``chunk_depth`` > 1 builds the engine to serve decode chunks that deep
     (every depth profiled, and captured, in the warm-up), and adds per
@@ -1058,7 +1073,7 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
     sched, engine, table = build_live_scheduler(
         cfgs, cats, batch_sizes=(1, 2, 4, 8), engine=engine, chunk_depth=chunk_depth)
     profiling_launches = ops.launch_counts()
-    log(f"profiling (and decode captures: {len(engine._graphs)}) took "
+    log(f"profiling (and captures: {graph_kinds(engine)}) took "
         f"{time.perf_counter() - t_prof:.3f} s")
     wcet = {}
     for mid, dec_seq in decode_seq.items():
@@ -1132,14 +1147,14 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
         f"jobs={m.job_count} mean_batch={m.mean_batch:.3f} "
         f"miss_rate={m.miss_rate:.4f} p99_latency={m.latency_percentile(0.99) * 1e3:.3f} ms "
         f"throughput={m.throughput:.3f} frames/s decode_compiles={engine.stats['decode_compiles']} "
+        f"prefill_compiles={engine.stats['prefill_compiles']} "
         f"chunk_submits={m.chunk_submits} chunked_steps={m.chunked_steps} "
         f"chunk_steps(engine)={engine.stats['chunk_steps']} chunks by model {chunks}")
     if m.completed_frames < 1:
         raise AssertionError("no frame completed")
     if m.completed_frames + m.dropped_frames + m.lost_frames != ingested:
         raise AssertionError("conservation: completed + dropped + lost != ingested")
-    if engine.stats["decode_compiles"] != 0:
-        raise AssertionError(f"decode_compiles = {engine.stats['decode_compiles']} after warm-up")
+    check_no_captures(engine, "served")
     if m.missed_frames:
         raise AssertionError(f"{m.missed_frames} frames missed their deadline")
     if chunk_depth > 1 and min(n for n, _ in chunks.values()) < 1:
@@ -1154,6 +1169,8 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
         if serving_launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched while serving")
 
+    # Every model's prefill replay equals its eager body, at batch 1 and 8.
+    prefill_checks = {mid: prefill_graph_checks(torch, engine, mid, PREFILL_SEQ) for mid in cfgs}
     # Every model's served steps give well-formed outputs.
     for mid, cfg in cfgs.items():
         logits = engine.dispatch(mid, (decode_seq[mid],), engine.max_slots, "decode").wait()
@@ -1186,8 +1203,83 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
         launches_profiling=profiling_launches, missed=m.missed_frames,
         chunk_submits=m.chunk_submits, chunked_steps=m.chunked_steps,
         chunks_by_model=chunks,
-        peak_mem_bytes=torch.cuda.max_memory_allocated(), **extra,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        peak_reserved_bytes=torch.cuda.max_memory_reserved(), prefill_checks=prefill_checks,
+        **extra,
     )
+
+
+def graph_kinds(engine) -> dict:
+    """The engine's captured step graphs, counted by kind."""
+    kinds = [key[0] for key in engine._graphs]
+    return {k: kinds.count(k) for k in ("decode", "prefill")}
+
+
+def check_no_captures(engine, label):
+    """Zero decode and zero prefill captures since the warm-up's
+    ``reset_stats``."""
+    st = engine.stats
+    if st["decode_compiles"] or st["prefill_compiles"]:
+        raise AssertionError(f"{label}: {st['decode_compiles']} decode and "
+                             f"{st['prefill_compiles']} prefill captures after warm-up")
+
+
+def prefill_graph_checks(torch, engine, mid, seq, batches=(1, 8)) -> dict:
+    """For each batch bucket: one replay of the (mid, seq, b) prefill graph
+    against the eager body on the same seeded tokens (the next tokens, bit
+    for bit), and a ``last_logits`` step graph captured the same way
+    against the eager logits (bit for bit). Returns each bucket's replay
+    and eager enqueue ms (host clock, up to the dispatch's return) and
+    the graph's launches; raises on a difference or a capture while
+    checking."""
+    from repro_torch.serving.engine import _StepGraph
+
+    model, params = engine.models[mid], engine.params[mid]
+    vocab = engine.configs[mid].vocab_size
+    before = engine.stats["prefill_compiles"]
+    out = {}
+    for b in batches:
+        graph = engine._graphs.get(("prefill", mid, seq, b))
+        if graph is None:
+            raise AssertionError(f"{mid}: no prefill graph for seq {seq} batch {b}")
+        gen = torch.Generator().manual_seed(seq * 100 + b)
+        toks = torch.randint(0, vocab, (b, seq), generator=gen, dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = engine.dispatch(mid, (seq,), b, "prefill", payload=toks.numpy())
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        got = h.wait()
+        dev = toks.to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (want,) = engine._prefill_fn(mid, seq, b)(dev)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+
+        def logits(t):
+            with torch.no_grad():
+                return (model.last_logits(params, t),)
+
+        lg_graph = _StepGraph(logits, (torch.zeros_like(dev),), engine._graph_pool)
+        (got_lg,) = lg_graph.replay((dev,))
+        got_lg = got_lg.clone()
+        (want_lg,) = logits(dev)
+        torch.cuda.synchronize()
+        del lg_graph
+        if not (torch.equal(got, want) and torch.equal(got_lg, want_lg)):
+            diff = float((got_lg - want_lg).abs().max())
+            raise AssertionError(f"{mid}: prefill replay vs eager body at batch {b} not "
+                                 f"bit-identical (tokens equal {torch.equal(got, want)}, "
+                                 f"logits max |diff| {diff:.3e})")
+        if not bool(torch.isfinite(want_lg).all()):
+            raise AssertionError(f"{mid}: non-finite prefill logits at batch {b}")
+        out[b] = dict(replay_enqueue_ms=replay_ms, eager_enqueue_ms=eager_ms,
+                      launches=dict(graph.launches))
+        log(f"{mid} prefill seq {seq} batch {b}: replay = eager body bit for bit (tokens "
+            f"{got.tolist()}, last-position logits); enqueue replay {replay_ms:.3f} ms, "
+            f"eager {eager_ms:.3f} ms; launches per replay {graph.launches}")
+    if engine.stats["prefill_compiles"] != before:
+        raise AssertionError(f"{mid}: a prefill capture while checking")
+    return out
 
 
 # Kernel wrapper calls per decode step (the captured launches of one step
@@ -1379,7 +1471,7 @@ def granite_cluster(torch, names, transport=False, **kw):
                 f"k={k}: {t.chunk_wcet(MID, dec, k) * 1e3:.3f} ms"
                 for k in t.chunk_depths_profiled(MID, dec))
         log(f"slice {name}: {e.max_slots} arena rows ({e.arena_nbytes(MID, dec[0])} bytes), "
-            f"decode graphs {len(e._graphs)}; profiled WCET decode {w_dec * 1e3:.3f} ms, "
+            f"graphs {graph_kinds(e)}; profiled WCET decode {w_dec * 1e3:.3f} ms, "
             "prefill " + ", ".join(f"b{b}: {w * 1e3:.3f} ms" for b, w in w_pre.items())
             + chunks)
     deadline = CLUSTER_DEADLINE_FACTOR * worst
@@ -1444,9 +1536,9 @@ def check_survivors(slices, dead, label):
     for name, sl in slices.items():
         if name == dead:
             continue
-        if sl.engine.stats["decode_compiles"] != 0 or len(sl.engine._graphs) != 1:
-            raise AssertionError(f"{label}: survivor {name} captured "
-                                 f"{sl.engine.stats['decode_compiles']} decode graphs")
+        check_no_captures(sl.engine, f"{label}: survivor {name}")
+        if graph_kinds(sl.engine)["decode"] != 1:
+            raise AssertionError(f"{label}: survivor {name} graphs {list(sl.engine._graphs)}")
         if sl.leases:
             raise AssertionError(f"{label}: survivor {name} kept leases {sl.leases}")
 
@@ -1503,7 +1595,8 @@ def cluster_summary(cluster, slices):
                            decode_wcet_ms=sl.spec.table.wcet(
                                MID, (DECODE_SEQ[MID],), sl.engine.max_slots) * 1e3,
                            dispatches=sl.engine.stats["dispatches"],
-                           decode_compiles=sl.engine.stats["decode_compiles"])
+                           decode_compiles=sl.engine.stats["decode_compiles"],
+                           prefill_compiles=sl.engine.stats["prefill_compiles"])
                    for n, sl in slices.items()},
     )
 
@@ -2221,8 +2314,7 @@ def zoo_inspect(torch, engine, mid, seq):
     payload = {r: int(torch.randint(0, vocab, (1,), generator=gen)) for r in rows}
     replay_vs_eager(torch, engine, mid, seq, payload)
     engine.free_slots(mid, seq, rows)
-    if engine.stats["decode_compiles"] != 0:
-        raise AssertionError(f"{mid}: a decode capture after warm-up")
+    check_no_captures(engine, mid)
     out = dict(
         launches_per_step=dict(graph.launches),
         weights_bytes=sum(t.numel() * t.element_size() for t in _leaves(engine.params[mid])),
@@ -2310,6 +2402,26 @@ def driver_kernels(torch, report, configs, seq):
                 log(f"{label}: max_abs_err={err:.3e}")
 
 
+@contextlib.contextmanager
+def engines_built():
+    """The ``InferenceEngine``s built inside the block, in a list (held
+    until the block ends)."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    made, init = [], InferenceEngine.__init__
+
+    def spy(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    InferenceEngine.__init__ = spy
+    try:
+        yield made
+    finally:
+        InferenceEngine.__init__ = init
+        made.clear()
+
+
 def phase_multitenant_driver(torch, report):
     """``repro_torch.launch.serve_multitenant.serve`` over full-width
     granite-3-2b and rwkv6-1.6b (bf16, the driver's prefill categories at
@@ -2318,9 +2430,11 @@ def phase_multitenant_driver(torch, report):
     camera sources, 2 slices behind the transport with a Chrome trace.
     Before the runs, both prefill kernels against their plain versions at
     the runs' shapes (``driver_kernels``). Each run: conservation, zero
-    decode captures on every slice, both prefill kernels launched (counts
-    set to 0 just before the run and read after it); the trace run writes
-    spans."""
+    decode and prefill captures on every slice, both prefill kernels
+    launched (counts set to 0 just before the run and read after it),
+    each live engine's prefill replays against the eager body
+    (``prefill_graph_checks``); the trace run writes spans. Logs the host
+    stall a job and the run's peak memory."""
     import tempfile
 
     from repro_torch.configs.registry import get_config
@@ -2338,18 +2452,30 @@ def phase_multitenant_driver(torch, report):
             torch.cuda.empty_cache()
             if kw.get("transport"):
                 kw["trace"] = os.path.join(tmp, "trace.json")
+            torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            rec = serve(configs, requests=DRIVER_REQUESTS, seq=DRIVER_SEQ,
-                        frames=DRIVER_FRAMES, device="cuda", **kw)
-            torch.cuda.synchronize()
-            launches = ops.launch_counts()
-            log(f"driver {label}: {time.perf_counter() - t0:.3f} s; launches {launches}; "
-                + json.dumps(rec, sort_keys=True, default=str))
+            with engines_built() as engines:
+                rec = serve(configs, requests=DRIVER_REQUESTS, seq=DRIVER_SEQ,
+                            frames=DRIVER_FRAMES, device="cuda", **kw)
+                torch.cuda.synchronize()
+                launches = ops.launch_counts()
+                log(f"driver {label}: {time.perf_counter() - t0:.3f} s; launches {launches}; "
+                    + json.dumps(rec, sort_keys=True, default=str))
+                # Each live slice's engine (a failed slice's is frozen):
+                # its prefill replays against the eager body.
+                for engine in engines:
+                    if not engine.frozen:
+                        for mid in configs:
+                            prefill_graph_checks(torch, engine, mid, DRIVER_SEQ)
+            log(f"driver {label}: host stall a job " + ", ".join(
+                f"{n} {sl['host_stall_us']:.1f} us" for n, sl in rec["slices"].items())
+                + f"; peak memory {torch.cuda.max_memory_allocated()} bytes allocated, "
+                f"{torch.cuda.max_memory_reserved()} reserved")
             if not rec["conserved"]:
                 raise AssertionError(f"driver {label}: conservation failed: {rec['metrics']}")
-            if any(s["decode_compiles"] for s in rec["slices"].values()):
-                raise AssertionError(f"driver {label}: decode captures {rec['slices']}")
+            if any(s["decode_compiles"] or s["prefill_compiles"] for s in rec["slices"].values()):
+                raise AssertionError(f"driver {label}: captures after warm-up {rec['slices']}")
             if rec["metrics"]["completed_frames"] < 1:
                 raise AssertionError(f"driver {label}: no frame completed")
             for name in ("flash_attention", "wkv6"):
@@ -2366,7 +2492,35 @@ def phase_multitenant_driver(torch, report):
 
 
 # ---------------------------------------------------------------------------
-# phases 16-17: whisper-large-v3 (encoder-decoder) and qwen2-vl-72b (M-RoPE)
+# phase examples: the two virtual-clock launchers
+# ---------------------------------------------------------------------------
+
+
+def phase_examples():
+    """``launch.quickstart`` and ``launch.cluster_sim``, each run as its
+    ``main()`` with its printed lines captured and logged."""
+    import io
+
+    from repro_torch.launch import cluster_sim, quickstart
+
+    for name, main in (("quickstart", quickstart.main), ("cluster_sim", cluster_sim.main)):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = main()
+        secs = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            if line:
+                log(f"{name}: {line}")
+        log(f"{name}: {secs:.3f} s of host time (virtual clock)")
+        if name == "quickstart" and result.missed_frames:
+            raise AssertionError(f"quickstart: {result.missed_frames} admitted frames missed")
+        if name == "cluster_sim" and not out.getvalue().startswith("placed 39/40 "):
+            raise AssertionError(f"cluster_sim placed: {out.getvalue().splitlines()[0]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 17-18: whisper-large-v3 (encoder-decoder) and qwen2-vl-72b (M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -2988,7 +3142,7 @@ def phase_mrope(torch, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: training (granite-3-2b), the flash backward kernel
+# phase 19: training (granite-3-2b), the flash backward kernel
 # ---------------------------------------------------------------------------
 
 
@@ -4028,6 +4182,8 @@ def main() -> int:
         phase_serve_zoo(torch, report)
     with Phase("multitenant_driver"):
         phase_multitenant_driver(torch, report)
+    with Phase("examples"):
+        phase_examples()
     with Phase("encdec"):
         phase_encdec(torch, report)
     with Phase("mrope"):

@@ -10,7 +10,8 @@ and 8 steps, and its prefill buckets, then for each reports:
 - the decode step eagerly (the step's body run outside its CUDA graph,
   as every decode step ran before the graphs), then as a graph replay;
   k-step decode chunks (k replays of the step graph each); prefill at
-  batch 1 and 8 (eager);
+  batch 1 and 8, eagerly (the bucket's body outside its graph, as every
+  prefill ran before the graphs), then as a graph replay;
 - wall ms per dispatch (host clock around dispatch + wait, median of RUNS
   unprofiled dispatches) and per step (wall / k);
 - host enqueue ms (dispatch returning, before the device finishes);
@@ -69,6 +70,10 @@ def _dispatcher(engine, mid, kind, seq, batch, k):
         tok = torch.zeros(batch, dtype=torch.int32, device=engine.device)
         cur, active = engine._prefix_mode_inputs(mid, seq, batch, "dispatch")
         return lambda: step(tok, cur, active)[0]
+    if kind == "prefill_eager":
+        body = engine._prefill_fn(mid, seq, batch)
+        toks = torch.zeros((batch, seq), dtype=torch.int32, device=engine.device)
+        return lambda: body(toks)[0]
     if k > 1:
         return lambda: engine.decode_chunk(mid, (seq,), batch, k)
     return lambda: engine.dispatch(mid, (seq,), batch, kind)
@@ -229,7 +234,8 @@ def main() -> None:
     for mid, dec_seq in DECODE_SEQ.items():
         rows = [("decode_eager", dec_seq, 8, 1), ("decode", dec_seq, 8, 1)]
         rows += [("decode", dec_seq, 8, k) for k in CHUNKS]
-        rows += [("prefill", PREFILL_SEQ, 1, 1), ("prefill", PREFILL_SEQ, 8, 1)]
+        rows += [(kind, PREFILL_SEQ, b, 1) for kind in ("prefill_eager", "prefill")
+                 for b in (1, 8)]
         for kind, seq, batch, k in rows:
             print(json.dumps(profile(engine, mid, kind, seq, batch, k)), flush=True)
     for mid, dec_seq in DECODE_SEQ.items():

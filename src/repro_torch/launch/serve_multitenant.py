@@ -141,11 +141,12 @@ class _Run:
         print(f"trace  : {snap['events']} spans ({snap['emitted']} emitted, "
               f"{snap['evicted']} evicted) -> {self.trace}")
 
-    def note_engine(self, name, engine, device) -> None:
+    def note_engine(self, name, engine, device, metrics) -> None:
         self.record["slices"][name] = {
             "decode_compiles": engine.stats["decode_compiles"],
             "prefill_compiles": engine.stats["prefill_compiles"],
             "device_busy_s": device.busy_time,
+            "host_stall_us": metrics.mean_dispatch_overhead * 1e6,
         }
 
     def note_cluster(self, cluster) -> dict:
@@ -250,7 +251,7 @@ class _Run:
                   f"shed={agg['dropped_frames']} lost={agg['lost_frames']} "
                   f"conserved={self.record['conserved']}")
             for name, sl in slices.items():
-                self.note_engine(name, sl.engine, sl.device)
+                self.note_engine(name, sl.engine, sl.device, sl.scheduler.metrics)
                 print(f"  {name}: decode_compiles={sl.engine.stats['decode_compiles']} "
                       f"device_busy={sl.device.busy_time:.2f}s")
             self.dump_trace()
@@ -286,7 +287,7 @@ class _Run:
                       f"missed={agg['missed_frames']} ({agg['miss_rate']:.1%}) "
                       f"jobs={agg['jobs']} dropped={agg['dropped_requests']}")
             for name, sl in slices.items():
-                self.note_engine(name, sl.engine, sl.device)
+                self.note_engine(name, sl.engine, sl.device, sl.scheduler.metrics)
                 if self.source:
                     continue
                 m, st = sl.scheduler.metrics, sl.engine.stats
@@ -311,7 +312,7 @@ class _Run:
                       f"({m.miss_rate:.1%}) shed={m.dropped_frames} "
                       f"e2e={m.mean_e2e_latency*1e3:.1f}ms "
                       f"sched-latency={m.mean_latency*1e3:.1f}ms")
-                self.note_engine("device0", engine, sched.device)
+                self.note_engine("device0", engine, sched.device, m)
                 self.dump_trace()
                 return
             for (mid, shape), batches in sorted(table.entries.items(), key=lambda kv: kv[0]):
@@ -345,7 +346,7 @@ class _Run:
             self.record["accepted"] = len(accepted)
             print(f"BATCH-4: completed={bm.completed_frames} missed={bm.missed_frames} "
                   f"({bm.miss_rate:.1%}) jobs={bm.job_count} mean_batch={bm.mean_batch:.2f}")
-            self.note_engine("device0", engine, sched.device)
+            self.note_engine("device0", engine, sched.device, m)
             self.dump_trace()
         finally:
             sched.device.close()

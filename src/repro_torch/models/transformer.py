@@ -409,6 +409,21 @@ class Transformer:
         """tokens: (B, S) integer; positions: (B, S), or (3, B, S) under
         mrope (required there). Returns (logits f32, aux): aux sums the MoE
         layers' load-balancing losses (0 without experts)."""
+        x, aux = self._trunk(params, tokens, positions)
+        return self._logits(params, x), aux
+
+    def last_logits(
+        self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """``forward``'s logits at the last position alone, (B, V) f32: the
+        head runs on one position, so no (B, S, V) tensor is made (the
+        serving engine's prefill, whose CUDA graph would keep it)."""
+        x, _ = self._trunk(params, tokens, positions)
+        return self._logits(params, x[:, -1:])[:, 0]
+
+    def _trunk(self, params, tokens, positions) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The embedding and every block: (final hidden states (B, S, D),
+        the MoE aux sum)."""
         positions = _positions(self.cfg, tokens, positions)
         x = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -422,7 +437,7 @@ class Transformer:
                 x, a, _ = _apply_block_full(self.cfg, kind, p, x, positions, collect=False)
             if a is not None:
                 aux = aux + a
-        return self._logits(params, x), aux
+        return x, aux
 
     def loss(self, params, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
              aux_weight: float = 0.01) -> torch.Tensor:

@@ -167,8 +167,9 @@ class AsyncDevice:
         began = self.mark_fn() if self.mark_fn is not None else None
         item = _Inflight(job, None, on_complete, job_bytes, start, exec_time, began)
         # The waiter watches the mark while this thread enqueues the job:
-        # the stream reaches a host-bound eager step long before its
-        # enqueue ends, and the job's clock starts there.
+        # the stream may reach the job before its enqueue ends (a graph
+        # replay's launch, a key's first eager call), and the job's clock
+        # starts there.
         self._inbox.put(item)
         try:
             handle = self.dispatch_fn(job)  # returns immediately (stream-ordered)

@@ -89,10 +89,10 @@ def profile_engine(
     k-step chunks over the power-of-two depth ladder
     (``bucketing.chunk_depths``), recording the per-depth flat WCET
     family (``record_flat(..., k=k)``) that the EDF worker's slack rule
-    consumes. Measuring here is also the WARM-UP: every decode step the
-    worker can later choose is captured as a CUDA graph during profiling
-    (a chunk is k replays of its step's graph), so serving stays at zero
-    decode captures. Raw per-depth
+    consumes. Measuring here is also the WARM-UP: every decode step and
+    every prefill bucket the worker can later choose is captured as a
+    CUDA graph during profiling (a chunk is k replays of its step's
+    graph), so serving stays at zero captures of either kind. Raw per-depth
     measurements are clamped monotone non-decreasing in k before
     recording (timer jitter on near-equal depths must not read as a
     family inversion).

@@ -28,19 +28,28 @@ hand:
 - There is no KV donation to ask for: the arena is one resident buffer
   written in place by every step. ``donate_cache`` is accepted for
   interface parity and has no effect.
-- In place of XLA's compiled programs, each decode step (per (mid, seq))
-  is ONE CUDA graph on a CUDA device. A key's first call runs eagerly as
-  that call's real step (it also loads the kernel libraries and cuBLAS's
-  handles); the graph is captured right after it, which runs no kernel
-  and leaves the arena as the eager step left it. Every later call copies
-  its inputs (tokens, cursors, active bitmap) into the graph's static
-  buffers on the replaying stream, replays, and clones the logits out,
-  so no handle's outputs are overwritten by the next replay. The graph
-  reads and writes the arena at the captured addresses, so the arena and
-  the parameters are never rebound. ``stats["decode_compiles"]`` counts
-  captures (on the CPU, step and chunk builds) and stays 0 after
-  warm-up; a failed capture raises, with no eager path behind it.
-  Prefill stays eager.
+- In place of XLA's compiled programs, each step is ONE CUDA graph on a
+  CUDA device: a decode step per (mid, seq), a prefill per (mid, seq,
+  batch bucket), the keys the reference jits. A key's first call runs
+  eagerly as that call's real step (it also loads the kernel libraries
+  and cuBLAS's handles); the graph is captured right after it, which
+  runs no kernel and leaves the arena as the eager step left it. Every
+  later call copies its inputs (decode: tokens, cursors, active bitmap;
+  prefill: the staged token rows) into the graph's static buffers on the
+  replaying stream, replays, and clones the logits (prefill: the next
+  tokens) out, so no handle's outputs are overwritten by the next
+  replay. So ``dispatch`` enqueues a replay and returns: the loop thread
+  that called it is not held for the step's thousands of launches. The
+  graph reads and writes the arena at the captured addresses, so the
+  arena and the parameters are never rebound. ``stats["decode_compiles"]``
+  and ``stats["prefill_compiles"]`` count captures (on the CPU, step and
+  chunk builds) and stay 0 after warm-up (the profiler runs every bucket
+  twice before it times one); a failed capture raises, with no eager path
+  behind it. Every engine-served arch captures both kinds.
+- Prefill runs the head on the last position alone
+  (``Transformer.last_logits``): a graph keeps its memory for good, and
+  full-sequence logits would hold 8 x 512 x 256000 float32 (4.2 GB) of
+  recurrentgemma's.
 - ``decode_chunk`` runs k decode steps as one dispatch: the single step
   repeated in order (the reference's ``lax.scan``), bit-identical to k
   single-step dispatches. On a CUDA device that is k back-to-back
@@ -57,6 +66,7 @@ hand:
 """
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -138,16 +148,22 @@ class SlotArena:
         return tuple(i for i in range(self.max_slots) if i not in free)
 
 
-class _DecodeGraph:
-    """One decode step captured as a CUDA graph: the static input buffers
-    it reads, the static outputs it writes, and the kernel launches one
-    replay makes, by wrapper (what the wrappers counted while it was
-    captured)."""
+class _StepGraph:
+    """One step (a decode step, or a prefill bucket) captured as a CUDA
+    graph: the static input buffers it reads, the static outputs it
+    writes, and the kernel launches one replay makes, by wrapper (what the
+    wrappers counted while it was captured)."""
 
     def __init__(self, fn, args: Sequence[torch.Tensor], pool):
         self.inputs = [a.clone() for a in args]
         self.graph = torch.cuda.CUDAGraph()
         before = kernel_ops.launch_counts()
+        # The cyclic collector stays off while capturing: a collection
+        # there may free a graph that only a reference cycle kept (a
+        # dropped engine's), and its destructor's CUDA calls, unsafe under
+        # capture, would invalidate this one.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: the capturing thread may make no call that is
             # unsafe under capture (a hidden sync in the step raises here),
@@ -158,6 +174,8 @@ class _DecodeGraph:
                                   capture_error_mode="thread_local"):
                 self.outputs = fn(*self.inputs)
         finally:
+            if collecting:
+                gc.enable()
             after = kernel_ops.launch_counts()
             self.launches = {n: after[n] - before[n] for n in after}
             # Capture launched nothing: take back what the wrappers counted.
@@ -236,10 +254,10 @@ class InferenceEngine:
             with torch.no_grad():
                 self.params[mid] = model.init(gen, device=self.device)
         self._steps: Dict[Tuple, Any] = {}
-        # Decode graphs by step key, all in one memory pool: replays run
-        # one at a time on one stream and outputs are cloned out, so no
-        # graph's memory is live while another replays.
-        self._graphs: Dict[Tuple, _DecodeGraph] = {}
+        # Step graphs (decode and prefill) by step key, all in one memory
+        # pool: replays run one at a time on one stream and outputs are
+        # cloned out, so no graph's memory is live while another replays.
+        self._graphs: Dict[Tuple, _StepGraph] = {}
         self._graph_pool = (
             torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         )
@@ -297,15 +315,18 @@ class InferenceEngine:
 
     # ----- step factories --------------------------------------------------
     def _prefill_fn(self, mid: str, seq: int, batch: int):
+        """THE prefill step for (mid, seq, batch bucket): ``run(tokens
+        (batch, seq)) -> (next tokens (batch,),)``, the argmax of the last
+        position's logits (``Transformer.last_logits``)."""
         key = ("prefill", mid, seq, batch)
         if key not in self._steps:
+            # One build per key, captured at its first call on a CUDA device.
             self.stats["prefill_compiles"] += 1
-            model = self.models[mid]
+            model, params = self.models[mid], self.params[mid]
 
-            def run(params, tokens):
+            def run(tokens):
                 with torch.no_grad():
-                    logits, _ = model.forward(params, tokens)
-                    return logits[:, -1].argmax(-1)
+                    return (model.last_logits(params, tokens).argmax(-1),)
 
             self._steps[key] = run
         return self._steps[key]
@@ -350,18 +371,19 @@ class InferenceEngine:
             self._steps[key] = lambda *args: _steps_in_order(step, *args)
         return self._steps[key]
 
-    def _run_decode(self, key: Tuple, fn, args: Sequence[torch.Tensor]):
-        """Run one decode step; returns (logits, new_cur), the logits the
-        caller's own. On the CPU ``fn`` runs eagerly. On a CUDA device a
-        key's first call runs eagerly as that call's real step and its
-        graph is captured after it; later calls replay the graph."""
+    def _run_step(self, key: Tuple, fn, args: Sequence[torch.Tensor]):
+        """Run one step (decode or prefill); returns its outputs, the first
+        (logits, or next tokens) the caller's own. On the CPU ``fn`` runs
+        eagerly. On a CUDA device a key's first call runs eagerly as that
+        call's real step and its graph is captured after it; later calls
+        replay the graph."""
         graph = self._graphs.get(key)
         if graph is not None:
-            logits, new_cur = graph.replay(args)
-            return logits.clone(), new_cur
+            first, *rest = graph.replay(args)
+            return (first.clone(), *rest)
         out = fn(*args)
         if self.device.type == "cuda":
-            self._graphs[key] = _DecodeGraph(fn, args, self._graph_pool)
+            self._graphs[key] = _StepGraph(fn, args, self._graph_pool)
         return out
 
     def _run_chunk(self, mid: str, seq: int, k: int, toks, cur, active, masks):
@@ -381,7 +403,7 @@ class InferenceEngine:
         if graph is None:
             step = self._decode_fn(mid, seq)
             logits, new_cur = _steps_in_order(step, toks, cur, active, masks)
-            self._graphs[key] = _DecodeGraph(
+            self._graphs[key] = _StepGraph(
                 step, (toks[-1], new_cur, acts[-1]), self._graph_pool)
             return logits, new_cur
         static_logits = graph.outputs[0]
@@ -625,7 +647,7 @@ class InferenceEngine:
             fn = self._prefill_fn(mid, seq, b)
             ring = self.staging_ring("prefill", mid, seq, b)
             tokens = self._stage_prefill_tokens(ring, payload, batch_size)
-            out = fn(self.params[mid], tokens)
+            (out,) = self._run_step(("prefill", mid, seq, b), fn, (tokens,))
             handle = StepHandle(out, mid, kind, batch_size, b, event=self._record())
             # The handle's wait guards this scratch buffer's reuse: the
             # ring refills it only after the copy and the step are done.
@@ -661,7 +683,7 @@ class InferenceEngine:
         self.stats["bucket_rows"] += m
         self.stats["real_slots"] += batch_size * seq
         self.stats["total_slots"] += k * seq
-        logits, new_cur = self._run_decode(("decode", mid, seq), fn, (tok, cur, active))
+        logits, new_cur = self._run_step(("decode", mid, seq), fn, (tok, cur, active))
         if slots is not None:
             arena.cur.copy_(new_cur)  # advanced on the device, in place
         handle = StepHandle(logits, mid, kind, batch_size, m, event=self._record())

@@ -6,6 +6,7 @@ this file imports none):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -20,7 +21,8 @@ from repro_torch.kernels.ref import decode_attention_split_plain, wkv6_chunked_p
 from repro_torch.kernels.rglru import rglru_scan_plain
 from repro_torch.kernels.wkv6 import wkv6_plain
 from repro_torch.models.layers import tree_leaves
-from repro_torch.serving.engine import InferenceEngine
+from repro_torch.core.bucketing import bucket
+from repro_torch.serving.engine import InferenceEngine, _StepGraph
 
 MID = "granite-3-2b"
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -486,7 +488,10 @@ def test_replay_matches_eager_decode_step(cuda, arch, dtype):
     """A step's graph replay against the eager step on the same inputs and
     the same arena (restored in place between the two), every block kind:
     the same kernels in the same order, so bit for bit."""
-    eng = _graph_engine(cuda, arch, dtype)
+    _decode_replay_matches_eager(cuda, _graph_engine(cuda, arch, dtype), arch)
+
+
+def _decode_replay_matches_eager(cuda, eng, arch):
     slots = eng.alloc_slots(arch, GSEQ, 5, start_pos=9)
     arena = eng.arena(arch, GSEQ)
     payload = {s: 3 + 7 * s for s in slots}
@@ -507,6 +512,7 @@ def test_replay_matches_eager_decode_step(cuda, arch, dtype):
     assert torch.equal(got[live], want[live])
     for a, t in zip(after, _leaves_of(arena)):
         assert torch.equal(a, t)
+    eng.free_slots(arch, GSEQ, slots)
 
 
 @pytest.mark.cuda
@@ -650,6 +656,174 @@ def test_chunk_is_k_step_replays_one_capture_per_key(cuda, arch):
         eng.dispatch(arch, (GSEQ,), 3, "decode", slots=slots).wait()
         assert torch.equal(out, kept)
     assert eng.stats["decode_compiles"] == 0
+
+
+# ---------------------------------------------------------------------------
+# prefill buckets as CUDA graphs
+# ---------------------------------------------------------------------------
+# Seq 16: wkv6's sequential design (below its 64-step chunk) and rglru's
+# streaming route (one chunk); seq 72: wkv6's chunked design (bf16) and
+# rglru's chunked route (5 chunks of 16).
+PSEQS = (16, 72)
+
+
+def _prefill_keys(arch, buckets=(1, 2, 4, 8)):
+    return {("prefill", arch, s, b) for s in PSEQS for b in buckets}
+
+
+def _prefill_replay_matches_eager(cuda, eng, arch, seq, b, rng):
+    """The (seq, b) bucket's replay against its eager body on the same
+    tokens, bit for bit: the served argmax, and the last position's
+    logits through a step graph of ``last_logits`` captured the same way."""
+    model, params = eng.models[arch], eng.params[arch]
+    first, toks = (rng.integers(0, 256, size=(b, seq)).astype(np.int32) for _ in range(2))
+    eng.dispatch(arch, (seq,), b, "prefill", payload=first).wait()  # eager, then captured
+    got = eng.dispatch(arch, (seq,), b, "prefill", payload=toks).wait()
+    dev_toks = torch.from_numpy(toks).to(cuda)
+    (want,) = eng._prefill_fn(arch, seq, b)(dev_toks)
+
+    def logits(t):
+        with torch.no_grad():
+            return (model.last_logits(params, t),)
+
+    graph = _StepGraph(logits, (torch.from_numpy(first).to(cuda),), eng._graph_pool)
+    (got_logits,) = graph.replay((dev_toks,))
+    (want_logits,) = logits(dev_toks)
+    torch.cuda.synchronize()
+    assert got.shape == (b,) and torch.equal(got, want)
+    assert torch.equal(got_logits, want_logits)
+    assert torch.equal(want_logits.argmax(-1), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_prefill_replay_matches_eager_body(cuda, arch, dtype):
+    """Buckets 1 and 8 at both prefill seqs, every engine-served arch:
+    a replay is the eager body's kernels in the same order, so bit for
+    bit."""
+    eng = _graph_engine(cuda, arch, dtype)
+    rng = np.random.default_rng(7)
+    for seq in PSEQS:
+        for b in (1, 8):
+            _prefill_replay_matches_eager(cuda, eng, arch, seq, b, rng)
+    assert set(eng._graphs) == _prefill_keys(arch, buckets=(1, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_prefill_one_capture_per_bucket_and_none_later(cuda, arch):
+    """The profiler's warm-up (every bucket twice) captures one graph per
+    (mid, seq, bucket); afterwards every true batch 1-8 replays its
+    bucket's graph, adds the launches its capture counted (the arch's
+    prefill kernels among them) and hands out its own tokens."""
+    eng = _graph_engine(cuda, arch, torch.bfloat16)
+    for seq in PSEQS:
+        eng.warmup(arch, (seq,), [1, 1, 2, 2, 3, 4, 5, 8, 8], "prefill")
+    assert set(eng._graphs) == _prefill_keys(arch)
+    assert eng.stats["prefill_compiles"] == len(_prefill_keys(arch))
+    kinds = set(tiny(arch).block_pattern)
+    for graph in eng._graphs.values():
+        assert (graph.launches["flash_attention"] > 0) == bool(kinds & {"attn", "swa"})
+        assert (graph.launches["wkv6"] > 0) == ("rwkv" in kinds)
+        assert (graph.launches["rglru_scan"] > 0) == ("rglru" in kinds)
+        assert graph.launches["decode_attention"] == 0
+    eng.reset_stats()
+    for seq in PSEQS:
+        for b in range(1, 9):
+            graph = eng._graphs[("prefill", arch, seq, bucket(b))]
+            before = ops.launch_counts()
+            out = eng.dispatch(arch, (seq,), b, "prefill").wait()
+            assert {n: c - before[n] for n, c in ops.launch_counts().items()} == graph.launches
+            assert out.shape == (bucket(b),) and out.data_ptr() != graph.outputs[0].data_ptr()
+    assert eng.stats["prefill_compiles"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_back_to_back_prefill_replays_hold_their_own_tokens(cuda, arch):
+    """Prefill replays enqueued back to back, waited on only at the end,
+    each hold their own argmax, as a twin engine waiting after every call
+    gives them."""
+    a = _graph_engine(cuda, arch, torch.float32)
+    b = _graph_engine(cuda, arch, torch.float32, params=a.params[arch])
+    seq = PSEQS[1]
+    for e in (a, b):
+        e.warmup(arch, (seq,), [8, 8], "prefill")
+    rng = np.random.default_rng(11)
+    payloads = [rng.integers(0, 256, size=(8, seq)).astype(np.int32) for _ in range(4)]
+    handles = [a.dispatch(arch, (seq,), 8, "prefill", payload=p) for p in payloads]
+    got = [h.wait() for h in handles]
+    want = [b.dispatch(arch, (seq,), 8, "prefill", payload=p).wait() for p in payloads]
+    assert len({g.data_ptr() for g in got}) == len(got)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert any(not torch.equal(got[0], g) for g in got[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_prefill_and_decode_graphs_share_one_pool(cuda, arch):
+    """Prefill graphs captured between decode captures and replays, all in
+    the engine's one pool: the decode step's replay still equals its eager
+    step bit for bit (logits and every arena leaf), and so do prefill
+    replays after decode replays; one graph per key."""
+    eng = _graph_engine(cuda, arch, torch.bfloat16)
+    _warm(eng, arch)
+    rng = np.random.default_rng(13)
+    for seq in PSEQS:
+        for b in (1, 8):
+            _prefill_replay_matches_eager(cuda, eng, arch, seq, b, rng)
+    _decode_replay_matches_eager(cuda, eng, arch)
+    for seq in PSEQS:
+        _prefill_replay_matches_eager(cuda, eng, arch, seq, 8, rng)
+    assert set(eng._graphs) == {("decode", arch, GSEQ)} | _prefill_keys(arch, buckets=(1, 8))
+    assert eng.stats["decode_compiles"] == 1
+    assert eng.stats["prefill_compiles"] == 4
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dead_graph_freed_meanwhile(cuda):
+    """A graph that only a reference cycle keeps (here a dropped engine's)
+    turns to garbage while another step is captured, with the collector
+    set to run at every allocation and the process's older objects frozen
+    out of its way, so that a collection would reach the dead graph then:
+    the capture still succeeds, because the collector is off while
+    capturing (and back on after), and its replay equals the eager
+    body."""
+    arch = "granite-3-2b"
+    eng = _graph_engine(cuda, arch, torch.bfloat16)
+    body = eng._prefill_fn(arch, PSEQS[0], 8)
+    toks = torch.randint(0, 256, (8, PSEQS[0]), dtype=torch.int32, device=cuda)
+    collecting = []
+
+    def dropping(tokens):
+        collecting.append(gc.isenabled())
+        held.clear()  # the dead graph is now cyclic garbage
+        _ = [[] for _ in range(100_000)]  # allocations: a collection would run here
+        return body(tokens)
+
+    gc.collect()
+    gc.freeze()
+    threshold = gc.get_threshold()
+    try:
+        dead = _graph_engine(cuda, arch, torch.bfloat16, params=eng.params[arch])
+        dead.execute(arch, (PSEQS[0],), 1, "prefill")
+        held = [dead._graphs[("prefill", arch, PSEQS[0], 1)]]
+        held[0].cycle = held[0]
+        del dead
+        gc.set_threshold(1, 1, 1)
+        graph = _StepGraph(dropping, (toks,), eng._graph_pool)
+    finally:
+        gc.set_threshold(*threshold)
+        gc.unfreeze()
+    assert gc.isenabled()
+    gc.collect()
+    (got,) = graph.replay((toks,))
+    (want,) = body(toks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert collecting == [False]
 
 
 @pytest.mark.cuda
