@@ -1,0 +1,10 @@
+"""wkv6's bound time over its measured device time, summed over the traced window's launches (chunked prompts and S = 1 decode)."""
+from rtbench.metrics import _common
+
+LAYER = "kernels (kernels/)"
+UNIT = "%"
+MOVES = "goodput_tok_s"
+
+
+def read(reading):
+    return _common.roofline_share(reading, "wkv6")
