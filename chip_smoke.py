@@ -7,7 +7,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 
 1. device  — requires CUDA, prints the card's name and power limit,
              turns TF32 off for matmuls and cuDNN.
-2. build   — builds the seven CUDA kernels from src/repro_torch/kernels/csrc
+2. build   — builds the eight CUDA kernels from src/repro_torch/kernels/csrc
              with nvcc for sm_90a (one nvcc per source, in parallel),
              prints ptxas' register and spill lines and, from
              `cuobjdump -sass`, each library's count of tensor-core
@@ -36,7 +36,12 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              and (8, 1) against its sequential design, and rglru_scan at
              (B, S, D) = (8, 512, 4096) and (1, 4096, 4096) against its
              streaming design (fails unless the training shape is 2x
-             faster and the served one within 3%). Kernel, previous
+             faster and the served one within 3%); the row-norm kernel
+             (RMS and layer norm) against its plain chain at d 2048 and
+             16384, timed in bf16 at 4096, 7936 and 32 rows x 2048 in
+             turns with the eager chain it replaced, beside PyTorch's
+             one-call F.rms_norm / F.layer_norm (fails under 60% of its
+             bytes bound at 4096 x 2048 RMS). Kernel, previous
              and SDPA times are device times (a CUDA graph of 20 calls,
              replayed); the plain versions are timed eagerly, and so is
              each attention kernel's wrapper once more, for its
@@ -221,7 +226,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              two forwards and one backward per layer's kernel (granite 80
              flash forwards and 40 backward launches; rwkv6 48 wkv6 and 24
              wkv6_bwd; recurrentgemma 16 rglru_scan, 8 rglru_bwd, 8 flash
-             forwards and 4 flash backwards), none of the others; logs
+             forwards and 4 flash backwards) and two row-norm launches per
+             block norm plus the final norm's (161, 97 and 49), none of
+             the others; logs
              step ms, tokens/s, peak memory and every loss (granite's
              beside the first backward design's). (c) At full width,
              every gradient leaf through the kernels against
@@ -243,8 +250,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              shardings_for_state, the batch by batch_sharding, the
              activation resolver installed) from the same seed-0 state,
              deterministic algorithms on: every loss and every state leaf
-             equal bit for bit, flash forward and backward launches a
-             step the same (80 and 40) in both; logs both arms' step ms.
+             equal bit for bit, flash forward and backward and row-norm
+             launches a step the same (80, 40 and 161) in both; logs both
+             arms' step ms.
              mixtral-8x7b at full width, 2 layers: one forward with
              set_moe_mesh(host mesh) through MoE's local path (its calls
              counted) against the global path, logits and aux bit for
@@ -260,8 +268,9 @@ and reads them after, and fails unless every kernel of its path
 launched.
 
 Before the last line it prints the nvidia-smi line and one JSON object
-with a row per kernel, seven rows (`previous_ms`: the previous design's
-time; the rglru_scan row also has `train_*` times and the bound at the
+with a row per kernel, eight rows (`previous_ms`: the previous design's
+time, for rownorm the eager chain's, replayed, and its `library_ms`
+F.rms_norm's; the rglru_scan row also has `train_*` times and the bound at the
 training shape (1, 4096, 4096);
 the wkv6 row also has `b1_*` and `decode_*` times and bounds at (1, 512)
 and (8, 1); the attention rows carry `shapes`, a record per timed
@@ -337,6 +346,10 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # float32 at B = 8, S = 1000, H = 32, K = V = 64).
 DU_EPS = 1e-6
 L2_BYTES = 50 * 2**20
+# The row-norm kernel's timed rows at d 2048: granite's 8 x 512 and 8 x 992
+# prefill buckets, then granite.chat's 32 decode rows; eps by kind (center).
+ROWNORM_ROWS = (4096, 7936, 32)
+ROWNORM_EPS = {False: 1e-6, True: 1e-5}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 # recurrentgemma-9b trains on one 4096-token row, so its 2048 window masks
 # half of each late query's keys; 12 of its 38 layers (four rglru, rglru,
@@ -714,7 +727,91 @@ def phase_kernels(torch, report):
     # query heads (MQA), window 2048, decode over a 2048-slot ring.
     attention_at_shapes(torch, report, RGEMMA, 16, 1, 256, [2048], previous=True)
     recurrence_kernels(torch, report)
+    rownorm_kernels(torch, report)
     log(f"launch counters after the kernels phase: {ops.launch_counts()}")
+
+
+def rownorm_inputs(torch, gen, rows, d, dtype, w_dtype, center):
+    x = (3 * torch.randn((rows, d), generator=gen, device="cuda") + 0.5).to(dtype)
+    w = (0.1 * torch.randn(d, generator=gen, device="cuda") + float(center)).to(w_dtype)
+    b = (0.1 * torch.randn(d, generator=gen, device="cuda")).to(w_dtype) if center else None
+    return x, w, b
+
+
+def rownorm_kernels(torch, report):
+    """The row-norm kernel against its plain chain (both kinds, both
+    dtypes, weights in either dtype) at granite's d 2048 and the zoo's
+    widest, two calls equal; then timed alone in bf16 at ROWNORM_ROWS x
+    2048, both kinds, as CUDA-graph replays over inputs past L2, in turns
+    with the eager chain it replaced (replayed the same way, and eager),
+    beside PyTorch's one-call norm of the same function (``F.rms_norm``
+    with ``1 + w`` made beforehand, ``F.layer_norm``: timed here only, the
+    port never calls them) and its bytes bound: x read and y written once,
+    plus the weights."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rownorm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    d = 2048
+    errs = {}
+    for center in (False, True):
+        eps = ROWNORM_EPS[center]
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            for w_dtype in (torch.bfloat16, torch.float32):
+                for rows, width in ((4096, d), (3, 16384)):
+                    x, w, b = rownorm_inputs(torch, gen, rows, width, dtype, w_dtype, center)
+                    got = rn.rownorm(x, w, b, eps=eps, center=center)
+                    want = rn.rownorm_plain(x, w, b, eps=eps, center=center)
+                    torch.cuda.synchronize()
+                    label = (f"rownorm {'layer' if center else 'rms'} {rows} x {width} "
+                             f"{dtype_name}, {w_dtype} weights")
+                    err = assert_close(label, got, want, TOL[dtype_name])
+                    if not torch.equal(got, rn.rownorm(x, w, b, eps=eps, center=center)):
+                        raise AssertionError(f"{label}: two calls on the same inputs differ")
+                    errs[dtype_name] = max(errs.get(dtype_name, 0.0), err)
+                    log(f"{label}: max_abs_err={err:.3e}")
+    shapes = {}
+    for center in (False, True):
+        eps, kind = ROWNORM_EPS[center], "layer" if center else "rms"
+        for rows in ROWNORM_ROWS:
+            base = rownorm_inputs(torch, gen, rows, d, torch.bfloat16, torch.bfloat16, center)
+            x, w, b = base
+            inputs = [base] + [(x.clone(), w, b)
+                               for _ in range(n_copies(x.numel() * x.element_size()) - 1)]
+            run_k = lambda x_, w_, b_: rn.rownorm(x_, w_, b_, eps=eps, center=center)
+            run_p = lambda x_, w_, b_: rn.rownorm_plain(x_, w_, b_, eps=eps, center=center)
+            ms, chain_ms = in_turns(run_k, run_p, inputs)
+            eager_chain_ms = time_ms(run_p, inputs)
+            if center:
+                library_ms = device_ms(lambda x_, w_, b_: F.layer_norm(x_, (d,), w_, b_, eps),
+                                       inputs)
+            else:
+                w1 = (1.0 + w.float()).to(w.dtype)
+                library_ms = device_ms(lambda x_, w_, b_: F.rms_norm(x_, (d,), w1, eps), inputs)
+            nbytes = 2 * x.numel() * x.element_size() + (2 if center else 1) * d * 2
+            bound_ms, bound_by = bound(nbytes, 0)
+            shapes[f"{kind} {rows}x{d} bf16"] = dict(
+                ms=ms, previous_ms=chain_ms, plain_ms=eager_chain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_share=bound_ms / ms)
+            log(f"rownorm timed {kind} {rows} x {d} bf16: kernel {ms:.4f} ms, the eager chain "
+                f"{chain_ms:.4f} ms replayed / {eager_chain_ms:.4f} ms eager, library "
+                f"{library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% of it; "
+                f"{nbytes} bytes), plan {rn.plan(d, 2)}")
+    main = shapes[f"rms {ROWNORM_ROWS[0]}x{d} bf16"]
+    if main["bound_share"] < 0.6:
+        raise AssertionError(f"rownorm: {100 * main['bound_share']:.1f}% of its bytes bound at "
+                             f"{ROWNORM_ROWS[0]} x {d} bf16, under 60%")
+    report["rownorm"] = dict(
+        name="rownorm", route="cuda", source="src/repro_torch/kernels/csrc/rownorm.cu",
+        replaces="none (XLA fuses src/repro/models/layers.py rmsnorm / layernorm)",
+        max_abs_err=errs["bfloat16"], f32_max_abs_err=errs["float32"],
+        bf16_max_abs_err=errs["bfloat16"], ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by="bytes", library_ms=main["library_ms"],
+        previous_ms=main["previous_ms"], shape=f"rms {ROWNORM_ROWS[0]} x {d} bf16",
+        shapes=shapes)
 
 
 def wkv6_inputs(torch, gen, b, s, h, k, dtype, w_dtype, with_state):
@@ -1165,6 +1262,7 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
     needed = {"decode_attention", "flash_attention"} if kinds & {"attn", "swa"} else set()
     needed |= {"wkv6"} if "rwkv" in kinds else set()
     needed |= {"rglru_scan"} if "rglru" in kinds else set()
+    needed.add("rownorm")  # every model normalises
     for name in sorted(needed):
         if serving_launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched while serving")
@@ -1299,6 +1397,10 @@ CALLS_PER_STEP = {
 }
 for _calls in CALLS_PER_STEP.values():  # decode never runs a backward kernel
     _calls.update(flash_attention_bwd=0, wkv6_bwd=0, rglru_bwd=0)
+    # One row-norm launch a norm: two a block (each block launches one of the
+    # three mixers above) and the final norm.
+    _calls["rownorm"] = 2 * (_calls["decode_attention"] + _calls["wkv6"]
+                             + _calls["rglru_scan"]) + 1
 
 
 def phase_graphs(torch, mid, seq, k=8, **overrides):
@@ -2045,7 +2147,10 @@ def phase_transport(torch):
                                  f"{transport.status()['sessions'][str(i + 1)]['wire']}")
     if victim.rehomes < 1 or victim.session.slice_name == home:
         raise AssertionError("transport: the displaced session never re-homed")
-    post = [(t, seq) for t, sid, seq in deliveries if sid == 1 and t >= state["t"]]
+    # The spy sees every frame handed to the gateway; only those it
+    # delivered (not shed, nor lost to the dead slice) carry payloads.
+    post = [(t, seq) for t, sid, seq in deliveries
+            if sid == 1 and t >= state["t"] and seq in victim.delivered_payloads]
     if not post or not any(np.asarray(victim.delivered_payloads[seq]).any() for _, seq in post):
         raise AssertionError("transport: no real bytes delivered after the failover")
     agg = check_conserved(cluster, "transport")
@@ -3545,13 +3650,15 @@ def train_batch(torch, data, i):
 def expected_train_launches(cfg) -> dict:
     """Kernel launches a train step makes through ``cfg``'s layers with remat
     on: two forwards (the step's and the recompute) and one backward per
-    attention, wkv6 or rglru layer, no decode."""
+    attention, wkv6 or rglru layer, no decode; two row-norm forwards per
+    block norm and one for the final norm (their backward launches
+    nothing: ``RownormFn`` differentiates the plain chain)."""
     kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
     n_attn = sum(kind in ("attn", "swa") for kind in kinds)
     n_rwkv, n_rglru = kinds.count("rwkv"), kinds.count("rglru")
     return {"decode_attention": 0, "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
             "wkv6": 2 * n_rwkv, "wkv6_bwd": n_rwkv, "rglru_scan": 2 * n_rglru,
-            "rglru_bwd": n_rglru}
+            "rglru_bwd": n_rglru, "rownorm": 4 * cfg.n_layers + 1}
 
 
 def train_full_width(torch, report, mid, n_layers, batch, seq):
@@ -3692,16 +3799,18 @@ def rwkv6_kernel_forward(torch):
     kernel (the chunked design in bf16, as the kernel path's forward) and
     its wkv gradient from autograd through the plain recurrence on the
     same inputs, at the kernel path's rounding points (o in r's dtype,
-    gradients in their inputs' dtypes). Both paths then run one forward
-    bit for bit, so their gradients differ only by wkv6_bwd against the
-    plain recurrence's derivative. Yields a list that gathers, for every
+    gradients in their inputs' dtypes), and its layer norms from the
+    row-norm kernel (``RownormFn``, as the kernel path). Both paths then
+    run one forward bit for bit, so their gradients differ only by
+    wkv6_bwd against the plain recurrence's derivative. Yields a list that gathers, for every
     forward call, (the kernel's o against the plain o rounded to r's
     dtype: max abs difference, max abs plain o, share of elements that
     differ)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import recurrent
+    from repro_torch.models import layers, recurrent
 
     scan, departs = recurrent.rwkv6_wkv_scan, []
+    layernorm = layers.layernorm
 
     class KernelForward(torch.autograd.Function):
         @staticmethod
@@ -3733,10 +3842,12 @@ def rwkv6_kernel_forward(torch):
         return KernelForward.apply(*(t.contiguous() for t in (r, k, v, w, u)))
 
     recurrent.rwkv6_wkv_scan = kernel_forward
+    layers.layernorm = lambda x, w, b, eps=1e-5, impl="xla": layernorm(x, w, b, eps)
     try:
         yield departs
     finally:
         recurrent.rwkv6_wkv_scan = scan
+        layers.layernorm = layernorm
 
 
 def train_two_layers(torch, report):
@@ -3744,7 +3855,7 @@ def train_two_layers(torch, report):
     against impl="dense" (``grads_vs_dense``) for granite-3-2b (bf16) and
     rwkv6-1.6b (float32) at 2 layers and recurrentgemma-9b (bf16) at 3 (one
     rglru, rglru, swa period), each at its full-width run's batch, and
-    rwkv6-1.6b in bf16 against dense on the kernel's wkv values
+    rwkv6-1.6b in bf16 against dense on the kernel's wkv and norm values
     (``rwkv6_kernel_forward``); then, on granite, the resume drill through CheckpointManager on a TrainState (6 steps
     straight against 3, save, restore, 3 more: torch.equal on every leaf)
     under torch.use_deterministic_algorithms(True)."""
@@ -3772,7 +3883,7 @@ def train_two_layers(torch, report):
         report["train"][mid].update(kernel_vs_dense_worst=worst, kernel_vs_dense_dtype=dtype)
     with rwkv6_kernel_forward(torch) as departs:
         worst = grads_vs_dense(torch, RWKV, 2, TRAIN_BATCH, TRAIN_SEQ, "bfloat16",
-                               against="dense on the kernel's wkv values")
+                               against="dense on the kernel's wkv and norm values")
     diff, scale, share = (max(d[i] for d in departs) for i in range(3))
     log(f"train {RWKV} x2 bf16: the chunked forward's wkv o against the plain o rounded to "
         f"bf16 in {len(departs)} calls: max abs difference {diff:.3e} (max abs o {scale:.3e}), "
@@ -3933,8 +4044,8 @@ def sharded_train(torch, mesh, report):
     """The meshed train step against the unmeshed one from one initial state
     (deterministic algorithms on in both): every loss and every state leaf
     equal bit for bit (a (1, 1) mesh moves nothing), flash forward and
-    backward launches per step equal and as expected; logs both arms'
-    step ms."""
+    backward and row-norm launches per step equal and as expected; logs
+    both arms' step ms."""
     torch.use_deterministic_algorithms(True)
     try:
         plain_losses, plain_ms, plain_launches, plain_state, cfg = sharded_train_arm(
@@ -3967,7 +4078,7 @@ def sharded_train(torch, mesh, report):
         raise AssertionError(f"sharding: the meshed steps are not the unmeshed ones bit for "
                              f"bit: losses {mesh_losses} vs {plain_losses}, leaves {unequal}")
     expected = expected_train_launches(cfg)
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "rownorm"):
         per_mesh = [c[name] for c in mesh_launches]
         per_plain = [c[name] for c in plain_launches]
         if per_mesh != per_plain or any(n != expected[name] for n in per_mesh):
@@ -4196,7 +4307,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms")
     names = ("decode_attention", "flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
-             "rglru_scan", "rglru_bwd")
+             "rglru_scan", "rglru_bwd", "rownorm")
     extra = ("b1_ms", "b1_previous_ms", "b1_bound_ms", "decode_ms", "decode_previous_ms",
              "train_ms", "train_previous_ms", "train_bound_ms",
              "decode_bound_ms", "gradient_of", "f32_max_abs_err", "bf16_max_abs_err", "shape",

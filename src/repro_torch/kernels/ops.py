@@ -26,6 +26,12 @@ and counted as such), runs the same call on ``to_local()`` and wraps the
 result back with ``from_local``. Both are differentiable, so the
 backward kernels run the same way. A ``meta`` or fake tensor raises: no
 kernel runs on it.
+
+``rownorm`` (the model's RMS and layer norms) routes like the others:
+the model calls it for every impl but ``"dense"``, which runs the plain
+chain itself. Its gradient on the card is ``rownorm.RownormFn``, whose
+backward differentiates the plain chain (no backward kernel); on a mesh
+every dim but the last is a row dim it keeps.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import rglru_bwd as _rglru_bwd
+from repro_torch.kernels import rownorm as _rownorm
 from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels import wkv6_bwd as _wkv6_bwd
 
@@ -51,6 +58,7 @@ _KERNELS = {
     "wkv6_bwd": _wkv6_bwd,
     "rglru_scan": _rglru,
     "rglru_bwd": _rglru_bwd,
+    "rownorm": _rownorm,
 }
 
 
@@ -118,8 +126,11 @@ def mesh_call(fn, args, dims, out_dims):
     output k's. A mesh dim keeps the first DTensor argument's ``Shard``
     when that shards a role every argument with the role can split evenly
     there; every other mesh dim is replicated. Plain tensor arguments
-    count as replicated."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    count as replicated. An argument without the role a mesh dim keeps
+    (a norm's weight beside batch-sharded rows) is used whole by every
+    rank of that dim on its own shard, so its gradient is the sum over
+    them (``Partial``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     j = next(j for j, a in enumerate(args) if is_dtensor(a))
     lead, lead_dims = args[j], dims[j]
@@ -151,7 +162,9 @@ def mesh_call(fn, args, dims, out_dims):
         want = layout(dm)
         if tuple(a.placements) != tuple(want):
             a = a.redistribute(mesh, want)
-        t = a.to_local()
+        grads = [Partial() if r is not None and r not in dm else pl
+                 for r, pl in zip(roles, want)]
+        t = a.to_local(grad_placements=grads)
         local.append(_StridedGrad.apply(t) if t.requires_grad else t)
     with local_region(math.prod(split.values())):
         out = fn(*local)
@@ -250,6 +263,25 @@ def wkv6(
     if _on_cuda(r):
         return _wkv6.wkv6(r, k, v, w, u, state, state_out=state_out)
     return _wkv6.wkv6_plain(r, k, v, w, u, state, state_out=state_out)
+
+
+def rownorm(
+    x: torch.Tensor,  # (..., d)
+    w: torch.Tensor,  # (d,)
+    b: Optional[torch.Tensor] = None,  # (d,), layer norm only
+    *,
+    eps: float,
+    center: bool,
+) -> torch.Tensor:
+    """Layer norm when ``center``, else RMS norm with weight ``1 + w``,
+    over x's last dim; see ``kernels/rownorm.py``."""
+    if is_dtensor(x) or is_dtensor(w) or is_dtensor(b):
+        rows = {f"row{i}": i for i in range(x.dim() - 1)}
+        return mesh_call(lambda *a: rownorm(*a, eps=eps, center=center), [x, w, b],
+                         [rows, {}, {}], [rows])
+    if _on_cuda(x):
+        return _rownorm.rownorm(x, w, b, eps=eps, center=center)
+    return _rownorm.rownorm_plain(x, w, b, eps=eps, center=center)
 
 
 def launch_counts() -> Dict[str, int]:

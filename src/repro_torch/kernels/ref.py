@@ -22,7 +22,9 @@ CPU tests can compare algorithms without float32 summation order.
 ``decode_attention_split_plain`` is the plain twin of the decode
 kernel's two passes (per-split partials, then their combine in split
 order); ``wkv6_chunked_plain`` is the plain twin of the chunked wkv6
-kernel's arithmetic.
+kernel's arithmetic. ``rmsnorm_ref`` and ``layernorm_ref`` are the
+model's norms as eager float32 chains, and ``rownorm_plain`` chooses
+between them as the row-norm kernel does.
 
 One departure from ``repro.kernels.ref``: a decode row with NO live slot
 (``active`` off, or every slot masked) outputs exact 0, which is what
@@ -923,3 +925,35 @@ def wkv6_bwd_chunked_plain(
         gu += part
     return (gr.to(r.dtype), gk.to(k.dtype), gv.to(v.dtype), gw.to(w.dtype), gu.to(u.dtype),
             None if state is None else d_state0)
+
+
+def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim with weight ``1 + weight``, as an eager
+    float32 chain; the result in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def layernorm_ref(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """Layer norm over the last dim (biased variance), as an eager float32
+    chain; the result in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dtype)
+
+
+def rownorm_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
+                  eps: float, center: bool) -> torch.Tensor:
+    """The row-norm kernel's function (``kernels/rownorm.py``): layer norm
+    when ``center``, else RMS norm."""
+    if center:
+        return layernorm_ref(x, w, b, eps)
+    return rmsnorm_ref(x, w, eps)

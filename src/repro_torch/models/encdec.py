@@ -167,10 +167,10 @@ class EncDecTransformer:
 
     def _enc_block(self, p, x, positions):
         cfg = self.cfg
-        h = apply_norm(x, p["norm1"], cfg.norm)
+        h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl)
         x = constrain(x + mha(p["attn"], h, positions, causal=False, rope_theta=None,
                               rope_kind="none", impl=cfg.impl), BSE)
-        h2 = apply_norm(x, p["norm2"], cfg.norm)
+        h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl)
         return constrain(x + apply_mlp(h2, p["ffn"], cfg.activation), BSE)
 
     # ----- encoder --------------------------------------------------------
@@ -188,20 +188,20 @@ class EncDecTransformer:
                                context_fn=remat_contexts)
             else:
                 x = self._enc_block(p, x, positions)
-        return apply_norm(x, params["enc_final_norm"], cfg.norm)
+        return apply_norm(x, params["enc_final_norm"], cfg.norm, cfg.impl)
 
     # ----- decoder, full sequence (training) ------------------------------
     def _dec_block_full(self, p, x, positions, enc_out):
         cfg = self.cfg
-        h = apply_norm(x, p["norm1"], cfg.norm)
+        h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl)
         x = constrain(x + mha(p["self_attn"], h, positions, causal=True, rope_theta=None,
                               rope_kind="none", impl=cfg.impl), BSE)
-        hc = apply_norm(x, p["norm_cross"], cfg.norm)
+        hc = apply_norm(x, p["norm_cross"], cfg.norm, cfg.impl)
         x = x + mha(p["cross_attn"], hc, positions, causal=False, rope_theta=None,
                     rope_kind="none", impl=cfg.impl,
                     kv_override=_cross_kv(p["cross_attn"], enc_out))
         x = constrain(x, BSE)
-        h2 = apply_norm(x, p["norm2"], cfg.norm)
+        h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl)
         return constrain(x + apply_mlp(h2, p["ffn"], cfg.activation), BSE)
 
     def _embed_dec(self, params, tokens, positions):
@@ -223,7 +223,7 @@ class EncDecTransformer:
                                use_reentrant=False, context_fn=remat_contexts)
             else:
                 x = self._dec_block_full(p, x, positions, enc_out)
-        x = apply_norm(x, params["dec_final_norm"], self.cfg.norm)
+        x = apply_norm(x, params["dec_final_norm"], self.cfg.norm, self.cfg.impl)
         return unembed(x, params["embed"]), torch.zeros((), dtype=torch.float32,
                                                         device=x.device)
 
@@ -277,7 +277,7 @@ class EncDecTransformer:
         views = None  # self-cache positions and validity, shared by every layer
         for i, p in enumerate(self._layers(params, "decoder")):
             layer = {"k": cache["self_k"][i], "v": cache["self_v"][i]}
-            h = apply_norm(x, p["norm1"], cfg.norm)
+            h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl)
             k, v = project_kv(p["self_attn"], h, cursor[:, None], None, "none")
             kvcache.attn_cache_write(layer, k, v, cursor)
             if views is None:
@@ -285,12 +285,12 @@ class EncDecTransformer:
             x = x + mha_decode(p["self_attn"], h, cursor, layer["k"], layer["v"], *views,
                                rope_theta=None, rope_kind="none", impl=cfg.impl,
                                active=active)
-            hc = apply_norm(x, p["norm_cross"], cfg.norm)
+            hc = apply_norm(x, p["norm_cross"], cfg.norm, cfg.impl)
             x = x + mha_decode(p["cross_attn"], hc, cursor, cache["cross_k"][i],
                                cache["cross_v"][i], enc_pos, enc_valid, causal=False,
                                rope_theta=None, rope_kind="none", impl=cfg.impl,
                                active=active)
-            h2 = apply_norm(x, p["norm2"], cfg.norm)
+            h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl)
             x = x + apply_mlp(h2, p["ffn"], cfg.activation)
-        x = apply_norm(x, params["dec_final_norm"], cfg.norm)
+        x = apply_norm(x, params["dec_final_norm"], cfg.norm, cfg.impl)
         return unembed(x, params["embed"])[:, 0], cache

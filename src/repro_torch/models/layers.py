@@ -20,6 +20,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref as kernel_ref
 from repro_torch.models.sharding_hooks import replicate, unshard
 
 # ---------------------------------------------------------------------------
@@ -109,23 +111,25 @@ def build_axes(spec: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    dtype = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + weight.float())).to(dtype)
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+            impl: str = "xla") -> torch.Tensor:
+    """RMS norm with weight ``1 + weight``, float32 statistics, in x's dtype:
+    the row-norm kernel (``kernel_ops.rownorm``) unless ``impl`` is
+    ``"dense"``, which runs the plain chain."""
+    if impl == "dense":
+        return kernel_ref.rmsnorm_ref(x, weight, eps)
+    return kernel_ops.rownorm(x, weight, eps=eps, center=False)
 
 
 def layernorm(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+    impl: str = "xla",
 ) -> torch.Tensor:
-    dtype = x.dtype
-    x = x.float()
-    mu = x.mean(dim=-1, keepdim=True)
-    var = x.var(dim=-1, keepdim=True, unbiased=False)
-    x = (x - mu) * torch.rsqrt(var + eps)
-    return (x * weight.float() + bias.float()).to(dtype)
+    """Layer norm (biased variance), float32 statistics, in x's dtype;
+    routed as ``rmsnorm``."""
+    if impl == "dense":
+        return kernel_ref.layernorm_ref(x, weight, bias, eps)
+    return kernel_ops.rownorm(x, weight, bias, eps=eps, center=True)
 
 
 def norm_spec(d: int, kind: str) -> Dict[str, Param]:
@@ -137,10 +141,11 @@ def norm_spec(d: int, kind: str) -> Dict[str, Param]:
     }
 
 
-def apply_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
+def apply_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str,
+               impl: str = "xla") -> torch.Tensor:
     if kind == "rmsnorm":
-        return rmsnorm(x, p["scale"])
-    return layernorm(x, p["scale"], p["bias"])
+        return rmsnorm(x, p["scale"], impl=impl)
+    return layernorm(x, p["scale"], p["bias"], impl=impl)
 
 
 # ---------------------------------------------------------------------------

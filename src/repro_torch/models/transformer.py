@@ -184,7 +184,7 @@ def _apply_block_full(
     collect: bool,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict]]:
     """Returns (x_out, MoE aux loss or None, cache_contrib or None)."""
-    h = apply_norm(x, p["norm1"], cfg.norm)
+    h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl)
     contrib = None
     if kind in ("attn", "swa"):
         window = cfg.sliding_window if kind == "swa" else None
@@ -203,7 +203,7 @@ def _apply_block_full(
     # residual stream here too (the reference pins it only at the block's
     # end) keeps a pending sum from turning into a sequence shard.
     x = constrain(x + y, ("batch", "seq", "embed"))
-    h2 = apply_norm(x, p["norm2"], cfg.norm)
+    h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl)
     aux = None
     if kind == "rwkv":
         f, chan_state = rwkv6_channelmix(p["ffn"], h2)
@@ -234,7 +234,7 @@ def _apply_block_decode(
     token's K/V for attention kinds, every state leaf for the recurrent
     ones. As in the reference, recurrent states advance on every row
     whatever ``active`` says (only attention reads the bitmap)."""
-    h = apply_norm(x, p["norm1"], cfg.norm)
+    h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl)
     if kind in ("attn", "swa"):
         pos_for_kv = mrope_position if cfg.rope_kind == "mrope" else cursor[:, None]
         k, v = project_kv(p["mixer"], h, pos_for_kv, cfg.rope_theta, cfg.rope_kind)
@@ -265,7 +265,7 @@ def _apply_block_decode(
         )
         cache["shift"].copy_(state["shift"])
     x = x + y
-    h2 = apply_norm(x, p["norm2"], cfg.norm)
+    h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl)
     if kind == "rwkv":
         f, chan = rwkv6_channelmix(p["ffn"], h2, state=cache["channel"])
         cache["channel"].copy_(chan)
@@ -397,7 +397,7 @@ class Transformer:
         return constrain(x, ("batch", "seq", "embed"))
 
     def _logits(self, params, x):
-        x = apply_norm(x, params["final_norm"], self.cfg.norm)
+        x = apply_norm(x, params["final_norm"], self.cfg.norm, self.cfg.impl)
         if self.cfg.tie_embeddings:
             return unembed(x, params["embed"])
         return x.float() @ params["lm_head"].float()

@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.kernels.ref import decode_attention_split_plain, wkv6_chunked_plain
 from repro_torch.kernels.rglru import rglru_scan_plain
+from repro_torch.kernels.rownorm import rownorm_plain
 from repro_torch.kernels.wkv6 import wkv6_plain
 from repro_torch.models.layers import tree_leaves
 from repro_torch.core.bucketing import bucket
@@ -62,7 +63,7 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     after = ops.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "decode_attention": 1, "flash_attention": 1, "flash_attention_bwd": 0, "wkv6": 0,
-        "wkv6_bwd": 0, "rglru_scan": 0, "rglru_bwd": 0}
+        "wkv6_bwd": 0, "rglru_scan": 0, "rglru_bwd": 0, "rownorm": 0}
 
 
 # (B, S, KV, G, D, window, ring): D in {8, 16, 64, 128, 256}, S in {1, 63,
@@ -1445,13 +1446,18 @@ def test_recurrent_train_step_through_kernels_matches_dense_on_card(cuda, arch, 
     parameter leaf's gradient through the kernels (wkv6 / rglru_scan
     forward, their backward kernels, flash for recurrentgemma's local
     attention) against impl="dense" (``RECURRENT_GRAD_TOL`` of each leaf's
-    max abs); no
-    plain version runs; two forwards (remat) and one backward per
-    recurrence; then a train step gives a finite loss."""
+    max abs), both arms normalising through the row-norm kernel
+    (``RownormFn``, whose backward differentiates the plain chain): these
+    gradients move by more than the tolerance when only the norms'
+    rounding moves, so the arms share their norms, as they shared the
+    chain before the kernel. No other plain version runs in the kernel
+    arm; two forwards (remat) and one backward per recurrence, two
+    row-norm launches per block norm and one for the final norm; then a
+    train step gives a finite loss."""
     from repro_torch.kernels import rglru as rk
     from repro_torch.kernels import rglru_bwd as rb
     from repro_torch.kernels import wkv6_bwd as wb
-    from repro_torch.models import model_for
+    from repro_torch.models import layers, model_for
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_loop as ttl
 
@@ -1476,9 +1482,16 @@ def test_recurrent_train_step_through_kernels_matches_dense_on_card(cuda, arch, 
     n_rwkv, n_rglru, n_swa = (kinds.count(x) for x in ("rwkv", "rglru", "swa"))
     assert used == {"decode_attention": 0, "flash_attention": 2 * n_swa,
                     "flash_attention_bwd": n_swa, "wkv6": 2 * n_rwkv, "wkv6_bwd": n_rwkv,
-                    "rglru_scan": 2 * n_rglru, "rglru_bwd": n_rglru}
+                    "rglru_scan": 2 * n_rglru, "rglru_bwd": n_rglru,
+                    "rownorm": 4 * cfg.n_layers + 1}
+    rms, ln = layers.rmsnorm, layers.layernorm
+    monkeypatch.setattr(layers, "rmsnorm", lambda x, w, eps=1e-6, impl="xla": rms(x, w, eps))
+    monkeypatch.setattr(layers, "layernorm",
+                        lambda x, w, b, eps=1e-5, impl="xla": ln(x, w, b, eps))
     ld = md.loss(params, batch["tokens"])
     gd = torch.autograd.grad(ld, leaves)
+    monkeypatch.setattr(layers, "rmsnorm", rms)
+    monkeypatch.setattr(layers, "layernorm", ln)
     torch.testing.assert_close(lk, ld, atol=1e-5, rtol=1e-5)
     for a, w in zip(gk, gd):
         scale = float(w.abs().max())
@@ -1519,6 +1532,7 @@ def test_train_step_through_kernels_matches_dense_on_card(cuda, arch, monkeypatc
                                              device=cuda)}
         loss = lambda m: m.loss(params, batch["frames"], batch["dec_tokens"])
         n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+        n_norm = 2 * (2 * cfg.n_encoder_layers + 3 * cfg.n_layers) + 2
     else:
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=cuda)}
         if cfg.rope_kind == "mrope":
@@ -1526,6 +1540,7 @@ def test_train_step_through_kernels_matches_dense_on_card(cuda, arch, monkeypatc
             batch["positions"] = torch.stack([t, t, t])
         loss = lambda m: m.loss(params, batch["tokens"], batch.get("positions"))
         n_attn = cfg.n_layers
+        n_norm = 4 * cfg.n_layers + 1
     leaves = tree_leaves(params)
     before = ops.launch_counts()
     lk = loss(mk)
@@ -1533,6 +1548,7 @@ def test_train_step_through_kernels_matches_dense_on_card(cuda, arch, monkeypatc
     after = ops.launch_counts()
     assert after["flash_attention"] - before["flash_attention"] == 2 * n_attn
     assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == n_attn
+    assert after["rownorm"] - before["rownorm"] == n_norm
     assert all(after[n] == before[n] for n in ("decode_attention", "wkv6", "wkv6_bwd",
                                                "rglru_scan", "rglru_bwd"))
     ld = loss(md)
@@ -1595,7 +1611,8 @@ def test_host_mesh_train_step_equals_unmeshed_on_card(cuda):
     assert got[0] == want[0]
     assert got[1] == want[1]
     assert all(l["flash_attention"] == 2 * cfg.n_layers and
-               l["flash_attention_bwd"] == cfg.n_layers for l in got[1])
+               l["flash_attention_bwd"] == cfg.n_layers and
+               l["rownorm"] == 4 * cfg.n_layers + 1 for l in got[1])
     assert len(got[2]) == len(want[2])
     assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
 
@@ -1629,3 +1646,134 @@ def test_ops_on_a_dtensor_run_the_kernel_on_the_local_shard(cuda):
         assert qd.grad is not None and tuple(qd.grad.placements) == (Shard(0), Replicate())
     finally:
         destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the row-norm kernel (RMS and layer norm)
+# ---------------------------------------------------------------------------
+# Rows: one, a ragged few, granite.chat's 32 decode rows, the 8 x 512
+# prefill bucket and the 8 x 992 one; widths of the zoo, to llama3-405b's.
+NORM_ROWS = (1, 3, 32, 4096, 7936)
+NORM_DS = (2048, 3072, 4096, 5120, 16384)
+
+
+def _norm_inputs(cuda, shape, dtype, w_dtype, center, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    d = shape[-1]
+    x = (3 * torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
+    w = (0.1 * torch.randn(d, generator=g, device=cuda) + (1.0 if center else 0.0)).to(w_dtype)
+    b = (0.1 * torch.randn(d, generator=g, device=cuda)).to(w_dtype) if center else None
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", NORM_DS)
+@pytest.mark.parametrize("center", [False, True], ids=["rms", "layer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rownorm_kernel_matches_plain_on_card(cuda, dtype, center, d):
+    """The kernel against its plain twin at every row count, one launch a
+    call, and two calls equal bit for bit."""
+    eps = 1e-5 if center else 1e-6
+    for rows in NORM_ROWS:
+        x, w, b = _norm_inputs(cuda, (rows, d), dtype, dtype, center, rows + d)
+        before = ops.launch_counts()["rownorm"]
+        got = ops.rownorm(x, w, b, eps=eps, center=center)
+        again = ops.rownorm(x, w, b, eps=eps, center=center)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["rownorm"] == before + 2
+        assert got.dtype == dtype and got.shape == x.shape
+        assert torch.equal(got, again)
+        want = rownorm_plain(x, w, b, eps=eps, center=center)
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("center", [False, True], ids=["rms", "layer"])
+@pytest.mark.parametrize("dtype,w_dtype", [(torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.bfloat16)])
+def test_rownorm_mixed_weights_and_strided_rows_on_card(cuda, dtype, w_dtype, center):
+    """Weights in the other dtype, and a batch's last position (rows one
+    stride apart, as ``last_logits`` normalises them): the twin's values,
+    and the strided rows' results equal to their contiguous copy's."""
+    eps = 1e-5 if center else 1e-6
+    x, w, b = _norm_inputs(cuda, (8, 72, 2048), dtype, w_dtype, center, 11)
+    got = ops.rownorm(x, w, b, eps=eps, center=center)
+    want = rownorm_plain(x, w, b, eps=eps, center=center)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    last = x[:, -1:]
+    got_last = ops.rownorm(last, w, b, eps=eps, center=center)
+    assert got_last.shape == last.shape and got_last.is_contiguous()
+    assert torch.equal(got_last, ops.rownorm(last.contiguous(), w, b, eps=eps, center=center))
+    assert torch.equal(got_last, got[:, -1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("center", [False, True], ids=["rms", "layer"])
+@pytest.mark.parametrize("needs", ["w", "x+w+b"])
+def test_rownorm_gradient_is_the_chains_on_card(cuda, center, needs):
+    """An input that needs a gradient while autograd records: one launch
+    (``RownormFn``), the twin's values, and for one upstream gradient the
+    gradients of the inputs that need one equal bit for bit to autograd's
+    through the plain chain;
+    under ``no_grad`` the same call launches once more."""
+    x, w, b = _norm_inputs(cuda, (16, 2048), torch.bfloat16, torch.bfloat16, center, 5)
+    eps = 1e-5 if center else 1e-6
+    leaves = [t for name, t in (("x", x), ("w", w), ("b", b)) if t is not None and name in needs]
+    for t in leaves:
+        t.requires_grad_(True)
+    gy = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(6),
+                     device=cuda).to(x.dtype)
+    before = ops.launch_counts()
+    got = ops.rownorm(x, w, b, eps=eps, center=center)
+    grads = torch.autograd.grad(got, leaves, gy)
+    assert ops.launch_counts() == dict(before, rownorm=before["rownorm"] + 1)
+    want = rownorm_plain(x, w, b, eps=eps, center=center)
+    wanted = torch.autograd.grad(want, leaves, gy)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    assert all(torch.equal(g, e) for g, e in zip(grads, wanted))
+    with torch.no_grad():
+        ops.rownorm(x, w, b, eps=eps, center=center)
+    assert ops.launch_counts()["rownorm"] == before["rownorm"] + 2
+
+
+@pytest.mark.cuda
+def test_rownorm_on_a_dtensor_runs_the_kernel_on_the_local_shard(cuda):
+    """``ops.rownorm`` on DTensors (host mesh): one launch on the local
+    shard, the rows' placement kept, the local result the plain call's."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import destroy_process_group, make_host_mesh
+
+    mesh = make_host_mesh()
+    try:
+        x, w, _ = _norm_inputs(cuda, (4, 64, 2048), torch.bfloat16, torch.bfloat16, False, 7)
+        xd = DTensor.from_local(x, mesh, [Shard(0), Replicate()], run_check=False)
+        before = ops.launch_counts()["rownorm"]
+        out = ops.rownorm(xd, w, eps=1e-6, center=False)
+        assert ops.launch_counts()["rownorm"] == before + 1
+        assert isinstance(out, DTensor) and tuple(out.placements) == (Shard(0), Replicate())
+        assert torch.equal(out.to_local(), ops.rownorm(x, w, eps=1e-6, center=False))
+    finally:
+        destroy_process_group()
+
+
+# Published depths at tiny width: granite-3-2b's 40 layers, rwkv6-1.6b's 24.
+NORM_DEPTHS = {"granite-3-2b": 40, "rwkv6-1.6b": 24}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(NORM_DEPTHS))
+def test_norm_launches_per_replay_at_published_depth(cuda, arch):
+    """At the published depth (bf16, tiny width) the 8 x 72 prefill
+    bucket's replay, and granite's decode step's, equal their eager steps
+    bit for bit and launch the row-norm kernel 2 L + 1 times: two norms a
+    block and the final norm (81 for granite, 49 for rwkv6)."""
+    n = NORM_DEPTHS[arch]
+    cfg = dataclasses.replace(tiny(arch, n_layers=n), param_dtype="bfloat16")
+    eng = InferenceEngine({arch: cfg}, max_slots=8, device=cuda)
+    _prefill_replay_matches_eager(cuda, eng, arch, 72, 8, np.random.default_rng(3))
+    assert eng._graphs[("prefill", arch, 72, 8)].launches["rownorm"] == 2 * n + 1
+    if arch == "granite-3-2b":
+        _decode_replay_matches_eager(cuda, eng, arch)
+        assert eng._graphs[("decode", arch, GSEQ)].launches["rownorm"] == 2 * n + 1

@@ -212,6 +212,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (dk.launches, fk.launches) == before
     counts = tops.launch_counts()
     assert set(counts) == {"decode_attention", "flash_attention", "flash_attention_bwd", "wkv6",
-                           "wkv6_bwd", "rglru_scan", "rglru_bwd"}
+                           "wkv6_bwd", "rglru_scan", "rglru_bwd", "rownorm"}
     assert (counts["decode_attention"], counts["flash_attention"]) == before
     assert counts["wkv6_bwd"] == counts["rglru_bwd"] == 0
