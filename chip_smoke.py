@@ -7,7 +7,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 
 1. device  — requires CUDA, prints the card's name and power limit,
              turns TF32 off for matmuls and cuDNN.
-2. build   — builds the eight CUDA kernels from src/repro_torch/kernels/csrc
+2. build   — builds the ten CUDA kernels from src/repro_torch/kernels/csrc
              with nvcc for sm_90a (one nvcc per source, in parallel),
              prints ptxas' register and spill lines and, from
              `cuobjdump -sass`, each library's count of tensor-core
@@ -77,6 +77,15 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
              DeepRT, a prefill and a decode category per model, with all
              four kernels launched while serving (the kernels line's
              launch counts are this run's, replays included).
+7b. hybrid — granite-4.0-h-micro (36 Mamba-2 + 4 NoPE attention layers):
+             `ssd_chunk` against its twin (bf16 8 x 512, 1 x 992, 2 x 100,
+             float32 2 x 130 also against the step-by-step recurrence) and
+             timed alone at 8 x 512 and 4 x 512 beside the twin and its
+             bound; `ssd_step` at 32 rows, half held (held rows untouched),
+             timed at 32 stepped rows, failing under 60% of its bytes
+             bound; the gated row norm; one period (10 layers) in float32
+             kernel vs dense; its 40-layer step graph (`graphs`); served
+             alone at full width and depth (`serve`).
 8. serve_chunked — serve_multitenant's models and streams from an engine
              built with chunk_depth=8 (chunk WCETs profiled for k = 1,
              2, 4, 8: k replays of the step graph, captured once in that
@@ -298,6 +307,7 @@ ROOT = Path(__file__).resolve().parent
 MID = "granite-3-2b"
 RWKV = "rwkv6-1.6b"
 RGEMMA = "recurrentgemma-9b"
+GRANITE4H = "granite-4.0-h-micro"
 MIXTRAL = "mixtral-8x7b"
 # mixtral-8x7b at full width is 46.7B parameters, 93 GB in bf16: past the
 # card's 80 GB. It is served 16 of its 32 layers deep (23.5B parameters,
@@ -1262,6 +1272,7 @@ def phase_serve(torch, decode_seq, streams, frames, deadline_factor, chunk_depth
     needed = {"decode_attention", "flash_attention"} if kinds & {"attn", "swa"} else set()
     needed |= {"wkv6"} if "rwkv" in kinds else set()
     needed |= {"rglru_scan"} if "rglru" in kinds else set()
+    needed |= {"ssd_chunk", "ssd_step"} if "mamba2" in kinds else set()
     needed.add("rownorm")  # every model normalises
     for name in sorted(needed):
         if serving_launches[name] < 1:
@@ -1394,13 +1405,197 @@ CALLS_PER_STEP = {
     RWKV: {"decode_attention": 0, "flash_attention": 0, "wkv6": 24, "rglru_scan": 0},
     RGEMMA: {"decode_attention": 12, "flash_attention": 0, "wkv6": 0, "rglru_scan": 26},
     MIXTRAL: {"decode_attention": 16, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0},
+    GRANITE4H: {"decode_attention": 4, "flash_attention": 0, "wkv6": 0, "rglru_scan": 0,
+                "ssd_step": 36},
 }
 for _calls in CALLS_PER_STEP.values():  # decode never runs a backward kernel
-    _calls.update(flash_attention_bwd=0, wkv6_bwd=0, rglru_bwd=0)
+    _calls.update(flash_attention_bwd=0, wkv6_bwd=0, rglru_bwd=0, ssd_chunk=0)
+    _calls.setdefault("ssd_step", 0)
     # One row-norm launch a norm: two a block (each block launches one of the
-    # three mixers above) and the final norm.
+    # four mixers above) and the final norm, and Mamba-2's gated norm.
     _calls["rownorm"] = 2 * (_calls["decode_attention"] + _calls["wkv6"]
-                             + _calls["rglru_scan"]) + 1
+                             + _calls["rglru_scan"] + _calls["ssd_step"]) + 1 + _calls["ssd_step"]
+
+
+SSD_SHAPE = dict(b=8, s=512, h=64, p=64, n=128)  # granite-4.0-h-micro's served prompt
+SSD_DECODE_ROWS = 32  # the chat cells' arena
+
+
+def ssd_chunk_inputs(torch, gen, b, s, h, p, n, dtype):
+    """xbc and dt as the model hands them to ``ssd_chunk`` (views of one
+    input projection), the conv's weights and granite-4.0-h-micro-like step
+    sizes and decays."""
+    cc = h * p + 2 * n
+    proj = torch.randn((b, s, cc + h + 8), generator=gen, device="cuda").to(dtype)
+    conv_w = (0.5 * torch.randn((4, cc), generator=gen, device="cuda")).to(dtype)
+    conv_b = (0.1 * torch.randn(cc, generator=gen, device="cuda")).to(dtype)
+    dt_bias = (torch.randn(h, generator=gen, device="cuda") - 3.0).to(dtype)
+    a_log = (0.5 * torch.randn(h, generator=gen, device="cuda") + 1.0).to(dtype)
+    d = (1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+    return proj[..., :cc], conv_w, conv_b, proj[..., cc:cc + h], dt_bias, a_log, d
+
+
+def ssd_step_inputs(torch, gen, rows, h, p, n, dtype):
+    cc = h * p + 2 * n
+    proj = torch.randn((rows, cc + h + 8), generator=gen, device="cuda").to(dtype)
+    xbc, dt = proj[:, :cc], proj[:, cc:cc + h]
+    conv = torch.randn((rows, 3, cc), generator=gen, device="cuda")
+    conv_w = (0.5 * torch.randn((4, cc), generator=gen, device="cuda")).to(dtype)
+    conv_b = (0.1 * torch.randn(cc, generator=gen, device="cuda")).to(dtype)
+    dt_bias = (torch.randn(h, generator=gen, device="cuda") - 3.0).to(dtype)
+    a_log = (0.5 * torch.randn(h, generator=gen, device="cuda") + 1.0).to(dtype)
+    d = (1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+    state = torch.randn((rows, h, p, n), generator=gen, device="cuda")
+    return xbc, dt, conv, conv_w, conv_b, dt_bias, a_log, d, state
+
+
+def ssd_kernels(torch, report):
+    """The two Mamba-2 kernels and the gated row norm against their plain
+    twins, then timed alone at the served shapes.
+
+    ``ssd_chunk``: bf16 at 8 x 512 (the served prompt), B 1 x 992 and
+    2 x 100 (ragged chunks) and float32 at 2 x 130 against its twin
+    ``ref.ssd_chunk_plain`` (the conv, then the chunked recurrence), y and
+    the last state, and at 2 x 130 against the conv then the step-by-step
+    ``ref.ssd_ref`` too; two calls equal. Timed at 8 x 512 and 4 x 512 as
+    CUDA-graph replays over inputs past L2, beside the plain twin eager,
+    against its bound (bytes: xBC and dt read, y written; operations
+    5 H P N a token). ``ssd_step``: 32 rows, every
+    other held, both dtypes, against ``ref.ssd_step_plain`` (y, the state,
+    the conv window); held rows' states ``torch.equal`` to before; two
+    calls equal; timed at 32 stepped rows against its bytes bound (each
+    state read and written once), failing under 60% of it. The gated
+    norm: 4096 rows of 4096 with a strided gate, both dtypes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rownorm as rn
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import ssd_step as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    sh = SSD_SHAPE
+    h, p, n = sh["h"], sh["p"], sh["n"]
+    errs = {}
+    for dtype_name, b, s in (("bfloat16", 8, 512), ("bfloat16", 1, 992), ("bfloat16", 2, 100),
+                             ("float32", 2, 130)):
+        dtype = getattr(torch, dtype_name)
+        args = ssd_chunk_inputs(torch, gen, b, s, h, p, n, dtype)
+        y, last = sc.ssd_chunk(*args, state_size=n)
+        want, want_last = ref.ssd_chunk_plain(*args, state_size=n)
+        torch.cuda.synchronize()
+        label = f"ssd_chunk {b} x {s} {dtype_name}"
+        err = assert_close(label, y, want, TOL[dtype_name])
+        err_s = assert_close(f"{label} last state", last, want_last, TOL[dtype_name])
+        if dtype_name == "float32":
+            xbc, conv_w, conv_b, dt, dt_bias, a_log, d = args
+            x, bm, cm = ref.ssd_conv(xbc, conv_w, conv_b, h, n)
+            seq_y, seq_last = ref.ssd_ref(x, dt, dt_bias, a_log, bm, cm, d)
+            err = max(err, assert_close(f"{label} vs ssd_ref", y, seq_y, TOL[dtype_name]))
+            assert_close(f"{label} last state vs ssd_ref", last, seq_last, TOL[dtype_name])
+        y2, last2 = sc.ssd_chunk(*args, state_size=n)
+        if not (torch.equal(y, y2) and torch.equal(last, last2)):
+            raise AssertionError(f"{label}: two calls on the same inputs differ")
+        errs[dtype_name] = max(errs.get(dtype_name, 0.0), err)
+        log(f"{label}: max_abs_err y {err:.3e}, last state {err_s:.3e}")
+    run_k = lambda *a: sc.ssd_chunk(*a, state_size=n, last_state=False)
+    chunk = {}
+    for b_ in (sh["b"], sh["b"] // 2):
+        s_ = sh["s"]
+        per = b_ * s_ * (h * p + 2 * n + h + 8) * 2
+        inputs = [ssd_chunk_inputs(torch, gen, b_, s_, h, p, n, torch.bfloat16)
+                  for _ in range(n_copies(per))]
+        ms = device_ms(run_k, inputs)
+        plain_ms = time_ms(lambda *a: ref.ssd_chunk_plain(*a, state_size=n), inputs[:2], iters=3,
+                           warmup=1)
+        nbytes = b_ * s_ * (2 * h * p + h + 2 * n) * 2
+        bound_ms, bound_by = bound(nbytes, 5 * b_ * s_ * h * p * n)
+        chunk[b_] = (ms, plain_ms, bound_ms, bound_by)
+        log(f"ssd_chunk timed {b_} x {s_} bf16 (no last state): kernel {ms:.4f} ms, plain "
+            f"twin eager {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({100 * bound_ms / ms:.1f}% of it); kernels "
+            + json.dumps({k: round(v, 4) for k, v in
+                          launch_split(torch, run_k, inputs[:1]).items()}))
+    b_, s_ = sh["b"], sh["s"]
+    chunk_ms, plain_ms, chunk_bound, chunk_by = chunk[b_]
+
+    rows = SSD_DECODE_ROWS
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        xbc, dt, conv, conv_w, conv_b, dt_bias, a_log, d, state = ssd_step_inputs(
+            torch, gen, rows, h, p, n, dtype)
+        active = torch.arange(rows, device="cuda") % 2 == 0
+        held = ~active
+        conv_p, state_p = conv.clone(), state.clone()
+        conv0, state0 = conv.clone(), state.clone()
+        y = ss.ssd_step(xbc, dt, conv, conv_w, conv_b, dt_bias, a_log, d, state, active)
+        want = ref.ssd_step_plain(xbc, dt, conv_p, conv_w, conv_b, dt_bias, a_log, d, state_p,
+                                  active)
+        torch.cuda.synchronize()
+        label = f"ssd_step {rows} rows {dtype_name}"
+        err = assert_close(label, y, want, TOL[dtype_name])
+        assert_close(f"{label} state", state, state_p, TOL[dtype_name])
+        assert_close(f"{label} conv window", conv, conv_p, TOL[dtype_name])
+        if not (torch.equal(state[held], state0[held]) and torch.equal(conv[held], conv0[held])
+                and float(y[held].abs().max()) == 0.0):
+            raise AssertionError(f"{label}: a held row was touched")
+        conv_r, state_r = conv0.clone(), state0.clone()
+        y_r = ss.ssd_step(xbc, dt, conv_r, conv_w, conv_b, dt_bias, a_log, d, state_r, active)
+        if not (torch.equal(y, y_r) and torch.equal(state, state_r) and torch.equal(conv, conv_r)):
+            raise AssertionError(f"{label}: two calls on the same inputs differ")
+        errs[dtype_name] = max(errs[dtype_name], err)
+        log(f"{label}: max_abs_err {err:.3e}; held rows untouched")
+    every = torch.ones(rows, dtype=torch.bool, device="cuda")
+    step_inputs = [ssd_step_inputs(torch, gen, rows, h, p, n, torch.bfloat16) + (every,)
+                   for _ in range(n_copies(rows * h * p * n * 4))]
+    step_ms = device_ms(lambda *a: ss.ssd_step(*a), step_inputs)
+    cc = h * p + 2 * n
+    step_bytes = rows * (2 * h * p * n * 4 + 2 * 3 * cc * 4 + (cc + h + h * p) * 2) + 5 * cc * 2
+    step_bound, step_by = bound(step_bytes, 5 * rows * h * p * n)
+    share = step_bound / step_ms
+    log(f"ssd_step timed {rows} rows bf16: kernel {step_ms:.4f} ms, bound {step_bound:.4f} ms by "
+        f"{step_by} ({100 * share:.1f}% of it; {step_bytes} bytes)")
+    if share < 0.6:
+        raise AssertionError(f"ssd_step: {100 * share:.1f}% of its bytes bound at {rows} rows")
+
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        proj = torch.randn((4096, 2 * h * p + 64), generator=gen, device="cuda").to(dtype)
+        y = torch.randn((4096, h * p), generator=gen, device="cuda").to(dtype)
+        w = (0.1 * torch.randn(h * p, generator=gen, device="cuda")).to(dtype)
+        z = proj[:, : h * p]
+        got = rn.rownorm(y, w, eps=1e-5, center=False, gate=z)
+        want = rn.rownorm_plain(y, w, eps=1e-5, center=False, gate=z)
+        err = assert_close(f"gated rownorm 4096 x {h * p} {dtype_name}", got, want,
+                           TOL[dtype_name])
+        log(f"gated rownorm 4096 x {h * p} {dtype_name}: max_abs_err {err:.3e}")
+    report["ssd_chunk"] = dict(
+        name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        replaces="none (the JAX package has no Mamba-2 block)",
+        max_abs_err=errs["bfloat16"], f32_max_abs_err=errs["float32"], ms=chunk_ms,
+        plain_ms=plain_ms, bound_ms=chunk_bound, bound_by=chunk_by, b4_ms=chunk[b_ // 2][0],
+        b4_bound_ms=chunk[b_ // 2][2],
+        shape=f"B {b_} x S {s_}, H {h}, P {p}, N {n}, bf16", library_ms=None)
+    report["ssd_step"] = dict(
+        name="ssd_step", route="cuda", source="src/repro_torch/kernels/csrc/ssd_step.cu",
+        replaces="none (the JAX package has no Mamba-2 block)",
+        max_abs_err=errs["bfloat16"], f32_max_abs_err=errs["float32"], ms=step_ms,
+        bound_ms=step_bound, bound_by=step_by, bound_share=share,
+        shape=f"{rows} rows, H {h}, P {p}, N {n}, bf16", library_ms=None)
+
+
+def phase_hybrid(torch, report):
+    """granite-4.0-h-micro: its kernels (``ssd_kernels``), one period of
+    ten layers at full width in float32, kernel path against dense
+    (``phase_model``), the 40-layer step graph (``phase_graphs``: replay =
+    eager, a chunk = its steps, launches per replay), then served alone at
+    full width and depth (``phase_serve``: both Mamba-2 kernels launched,
+    prefill replays against their eager bodies)."""
+    ssd_kernels(torch, report)
+    phase_model(torch, GRANITE4H, 10)
+    phase_graphs(torch, GRANITE4H, DECODE_SEQ[MID])
+    served = phase_serve(torch, {GRANITE4H: DECODE_SEQ[MID]}, {"decode": 4, "prefill": 2},
+                         frames=20, deadline_factor=12.0)
+    log("served hybrid: " + json.dumps(served, sort_keys=True))
+
 
 
 def phase_graphs(torch, mid, seq, k=8, **overrides):
@@ -3658,7 +3853,7 @@ def expected_train_launches(cfg) -> dict:
     n_rwkv, n_rglru = kinds.count("rwkv"), kinds.count("rglru")
     return {"decode_attention": 0, "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
             "wkv6": 2 * n_rwkv, "wkv6_bwd": n_rwkv, "rglru_scan": 2 * n_rglru,
-            "rglru_bwd": n_rglru, "rownorm": 4 * cfg.n_layers + 1}
+            "rglru_bwd": n_rglru, "rownorm": 4 * cfg.n_layers + 1, "ssd_chunk": 0, "ssd_step": 0}
 
 
 def train_full_width(torch, report, mid, n_layers, batch, seq):
@@ -4275,6 +4470,8 @@ def main() -> int:
         for name, n in served["launches_serving"].items():
             if name in report:  # the served kernels' rows; the backward's comes from train
                 report[name]["launches"] = n
+    with Phase("hybrid"):
+        phase_hybrid(torch, report)
     with Phase("serve_chunked"):
         served = phase_serve(torch, DECODE_SEQ, {"decode": 2, "prefill": 1}, frames=8,
                              deadline_factor=6.0, chunk_depth=8)

@@ -13,6 +13,8 @@
                                               # JSON under OUT, the table printed
   python3 scripts/chip_measure.py zoo [ARCH..]  # phases serve_zoo and
                                               # multitenant_driver alone
+  python3 scripts/chip_measure.py hybrid      # chip_smoke.py's phase hybrid
+                                              # (granite-4.0-h-micro) alone
 
 ``faults N`` builds the kernels once, then runs chip_smoke.py's phase
 ``faults`` N times in this process and prints one line per run (passed,
@@ -258,6 +260,14 @@ def main() -> int:
         return 0
     if what == "rglru":
         return rglru(torch)
+    if what == "hybrid":
+        import json
+
+        report: dict = {}
+        with cs.Phase("hybrid"):
+            cs.phase_hybrid(torch, report)
+        print(json.dumps(report, default=str))
+        return 0
     if what == "zoo":
         import json
 

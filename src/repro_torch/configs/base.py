@@ -3,7 +3,14 @@
 ``block_pattern`` is the repeating unit of layer kinds; it tiles to
 ``n_layers`` (a non-divisible remainder becomes unscanned tail layers).
 Kinds: ``attn`` (global attention), ``swa`` (sliding window), ``rglru``
-(Griffin recurrent block), ``rwkv`` (RWKV-6 time-mix block).
+(Griffin recurrent block), ``rwkv`` (RWKV-6 time-mix block), ``mamba2``
+(Mamba-2 state-space mixer, ``ssm_*`` sizes).
+
+The multipliers (``embedding_multiplier``, ``residual_multiplier``,
+``attention_multiplier``, ``logits_scaling``) and ``norm_eps`` default to
+the plain Llama-style arithmetic the reference computes (no scaling,
+1/sqrt(head_dim), the norm kind's own eps), bit for bit; Granite's
+published configs set them.
 """
 from __future__ import annotations
 
@@ -31,6 +38,19 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ("attn",)
     sliding_window: int = 4096
     d_rnn: Optional[int] = None  # Griffin recurrent width
+    # Mamba-2 (``mamba2`` blocks): ``ssm_heads`` heads of ``ssm_head_dim``
+    # channels (the inner width), a ``ssm_state``-wide state per channel, B
+    # and C one group shared by every head; the causal depthwise conv is 4
+    # wide (``models/mamba2.CONV_WIDTH``).
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_state: int = 128
+    # Granite's multipliers; the defaults change nothing.
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None  # None: 1 / sqrt(head_dim)
+    logits_scaling: float = 1.0
+    norm_eps: Optional[float] = None  # None: 1e-6 (rmsnorm), 1e-5 (layernorm)
     # MoE
     n_experts: int = 0
     top_k: int = 0
@@ -80,6 +100,16 @@ class ModelConfig:
         return self.pattern_layers[reps * len(self.block_pattern):]
 
     @property
+    def ssm_inner(self) -> int:
+        """A Mamba-2 block's inner width (its heads times their width)."""
+        return self.ssm_heads * self.ssm_head_dim
+
+    @property
+    def ssm_conv_dim(self) -> int:
+        """Channels of a Mamba-2 block's conv: x, then B and C."""
+        return self.ssm_inner + 2 * self.ssm_state
+
+    @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
@@ -89,7 +119,7 @@ class ModelConfig:
 
     @property
     def attention_free(self) -> bool:
-        return all(k in ("rglru", "rwkv") for k in self.block_pattern)
+        return all(k in ("rglru", "rwkv", "mamba2") for k in self.block_pattern)
 
     @property
     def sub_quadratic(self) -> bool:
@@ -120,6 +150,9 @@ class ModelConfig:
                 total += 2 * d * dr + 2 * dr * dr + dr * d
             elif kind == "rwkv":
                 total += 4 * d * d + d * d  # r,k,v,g,o
+            elif kind == "mamba2":
+                di = self.ssm_inner
+                total += d * (di + self.ssm_conv_dim + self.ssm_heads) + di * d
             if self.is_moe and kind in ("attn", "swa"):
                 total += 3 * self.n_experts * d * f
                 if self.shared_expert:

@@ -4,6 +4,11 @@ Each full config matches the assignment exactly; ``tiny()`` produces a
 same-family reduced config (few layers, small width, few experts, small
 vocab) for CPU smoke tests. The FULL configs are exercised only by the
 dry-run (ShapeDtypeStruct lowering — never allocated).
+
+``ARCHS`` holds the ten the JAX package also defines (the parity tests
+walk it); ``PORT_ARCHS`` the port's own, which the reference cannot run
+(granite-4.0-h-micro's Mamba-2 blocks). ``get_config`` and ``tiny``
+take either.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from repro_torch.configs.recurrentgemma_9b import CONFIG as recurrentgemma_9b
 from repro_torch.configs.qwen2_vl_72b import CONFIG as qwen2_vl_72b
 from repro_torch.configs.whisper_large_v3 import CONFIG as whisper_large_v3
 from repro_torch.configs.rwkv6_1_6b import CONFIG as rwkv6_1_6b
+from repro_torch.configs.granite_4_0_h_micro import CONFIG as granite_4_0_h_micro
 
 ARCHS: Dict[str, ModelConfig] = {
     c.arch_id: c
@@ -37,10 +43,15 @@ ARCHS: Dict[str, ModelConfig] = {
         rwkv6_1_6b,
     ]
 }
+PORT_ARCHS: Dict[str, ModelConfig] = {granite_4_0_h_micro.arch_id: granite_4_0_h_micro}
+
+
+def _config(arch_id: str) -> ModelConfig:
+    return ARCHS[arch_id] if arch_id in ARCHS else PORT_ARCHS[arch_id]
 
 
 def get_config(arch_id: str, **overrides) -> ModelConfig:
-    cfg = ARCHS[arch_id]
+    cfg = _config(arch_id)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
@@ -48,7 +59,7 @@ def get_config(arch_id: str, **overrides) -> ModelConfig:
 
 def tiny(arch_id: str, **overrides) -> ModelConfig:
     """Same-family reduced config for CPU smoke tests and examples."""
-    cfg = ARCHS[arch_id]
+    cfg = _config(arch_id)
     pattern = cfg.block_pattern
     n_layers = max(len(pattern), 2)
     if len(pattern) > 4:  # gemma3's 6-layer pattern: keep one full unit
@@ -70,6 +81,8 @@ def tiny(arch_id: str, **overrides) -> ModelConfig:
         remat=False,
         scan_layers=True,
     )
+    if cfg.ssm_heads:  # Mamba-2: 8 heads of 16 (inner width 2 x 64), a state of 16
+        changes.update(ssm_heads=8, ssm_head_dim=16, ssm_state=16)
     changes.update(overrides)
     return dataclasses.replace(cfg, **changes)
 

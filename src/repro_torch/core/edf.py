@@ -336,9 +336,12 @@ class EDFWorker:
                 tr.emit(T.EDF_DISPATCH, now, f.request_id, f.index,
                         where=tag, cat=cat,
                         meta={"job_id": m.job_id, "profiled": prof})
-        tr.emit(T.DEVICE_SUBMIT, now, where=tag,
-                meta={"job_id": job.job_id, "batch": job.batch_size,
-                      "k": getattr(job, "k", 1), "profiled": prof})
+        meta = {"job_id": job.job_id, "batch": job.batch_size,
+                "k": getattr(job, "k", 1), "profiled": prof}
+        rows = getattr(job, "decode_rows", None)
+        if rows is not None:  # slot-mode decode: (rows stepped, leased rows held)
+            meta["rows_stepped"], meta["rows_held"] = rows
+        tr.emit(T.DEVICE_SUBMIT, now, where=tag, meta=meta)
 
     def _trace_terminal(self, frame, now: float) -> None:
         """Exactly one terminal span per completed frame: ``completed``

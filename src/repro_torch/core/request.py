@@ -175,7 +175,8 @@ class ChunkJob:
     """
 
     __slots__ = (
-        "jobs", "start_time", "completion_time", "profiled_wcet", "_queued_wcet"
+        "jobs", "start_time", "completion_time", "profiled_wcet", "_queued_wcet",
+        "decode_rows",
     )
 
     def __init__(self, jobs: list):
@@ -190,6 +191,9 @@ class ChunkJob:
         self.completion_time: Optional[float] = None
         self.profiled_wcet: Optional[float] = None
         self._queued_wcet = 0.0
+        # (rows stepped, leased rows held) over the chunk's steps, set at a
+        # slot-mode dispatch (serving/batcher_bridge.py).
+        self.decode_rows = None
 
     @property
     def k(self) -> int:

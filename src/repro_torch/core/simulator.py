@@ -432,6 +432,12 @@ class Metrics:
     # lost, so ``ingested`` still covers them). Conservation for a drained
     # failure run: ``completed + dropped + lost == ingested``.
     lost_frames: int = 0
+    # Slot-mode decode over the arena's leases: rows a step advanced (a
+    # frame of their stream in the job) and leased rows it held (no frame
+    # this window: attention, cursor and recurrent state left as they
+    # were), summed over steps (a k-step chunk counts each step).
+    decode_rows_stepped: int = 0
+    decode_rows_held: int = 0
     # Submits the EDF worker retried after a transient device error.
     submit_retries: int = 0
     # Completion signals that arrived for an already-completed job

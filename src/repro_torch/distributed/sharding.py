@@ -247,6 +247,7 @@ def cache_axes(cfg, stacked: bool) -> Dict[str, LogicalAxes]:
         "shift": lead + ("batch", "embed"),
         "wkv": lead + ("batch", "heads", None, None),
         "channel": lead + ("batch", "embed"),
+        "ssm": lead + ("batch", "heads", None, None),
         "self_k": lead + ("batch", "seq", "kv_heads", "head_dim"),
         "self_v": lead + ("batch", "seq", "kv_heads", "head_dim"),
         "cross_k": lead + ("batch", "seq", "kv_heads", "head_dim"),
@@ -259,7 +260,7 @@ def cache_tree_axes(cache_tree: Any, cfg) -> Any:
     the encoder-decoder's flat layer-stacked dict)."""
 
     def walk(node, stacked):
-        if isinstance(node, dict) and any(k in node for k in ("k", "h", "shift", "self_k")):
+        if isinstance(node, dict) and any(k in node for k in ("k", "h", "shift", "ssm", "self_k")):
             table = cache_axes(cfg, stacked)
             return {name: table[name][: len(leaf.shape)] for name, leaf in node.items()}
         if isinstance(node, dict):

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 KERNELS = ("decode_attention", "flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
-           "rglru", "rglru_bwd", "rownorm")
+           "rglru", "rglru_bwd", "rownorm", "ssd_chunk", "ssd_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -32,6 +32,10 @@
 //     `__fadd_rn`), in the chain's order, not fused.
 // d is a multiple of 8 up to 16384 (the zoo's widest, llama3-405b); rows
 // of x may be strided (the last position of a batch), y is contiguous.
+// The gated RMS form (`rownorm_gated_fwd`, Mamba-2's output norm) reads a
+// gate g beside x and normalises x * silu(g), in float32, in the same
+// pass: y = (v * rsqrt(mean(v^2) + eps)) * (1 + w), v = x * silu(g); g's
+// rows may be strided too (a view of the input projection).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,13 +109,14 @@ __device__ __forceinline__ float block_sum(float v, float* partial) {
 
 // Row blockIdx.x. Thread t holds vectors t, t + threads, ... (VPT of
 // them, the last ones past d left out).
-template <typename T, typename W, int VPT, bool kCenter>
+template <typename T, typename W, int VPT, bool kCenter, bool kGate>
 __global__ void __launch_bounds__(kMaxThreads) rownorm_kernel(
     const T* __restrict__ x,     // (rows, x_stride), the first d of each row
+    const T* __restrict__ g,     // (rows, g_stride), gated RMS only
     const W* __restrict__ w,     // (d,)
     const W* __restrict__ bias,  // (d,), layer norm only
     T* __restrict__ y,           // (rows, d)
-    int d, long long x_stride, float eps) {
+    int d, long long x_stride, long long g_stride, float eps) {
   constexpr int E = 16 / (int)sizeof(T);
   __shared__ float partial[kMaxThreads / 32];
   const int nvec = d / E;
@@ -124,6 +129,12 @@ __global__ void __launch_bounds__(kMaxThreads) rownorm_kernel(
     const int c = threadIdx.x + i * blockDim.x;
     if (c < nvec) {
       load_vec<T, E>(xr + (long long)c * E, v[i]);
+      if constexpr (kGate) {
+        float gv[E];
+        load_vec<T, E>(g + (long long)blockIdx.x * g_stride + (long long)c * E, gv);
+#pragma unroll
+        for (int j = 0; j < E; ++j) v[i][j] *= gv[j] / (1.f + expf(-gv[j]));
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < E; ++j) v[i][j] = 0.f;
@@ -179,17 +190,20 @@ __global__ void __launch_bounds__(kMaxThreads) rownorm_kernel(
   }
 }
 
-template <typename T, typename W, bool kCenter>
+template <typename T, typename W, bool kCenter, bool kGate = false>
 int launch(const void* x, const void* w, const void* b, void* y, int rows, int d,
-           long long x_stride, float eps, int threads, cudaStream_t st) {
+           long long x_stride, float eps, int threads, cudaStream_t st,
+           const void* g = nullptr, long long g_stride = 0) {
   const int nvec = d / (16 / (int)sizeof(T));
   const int per = (nvec + threads - 1) / threads;
   const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(g);
   const W* wp = static_cast<const W*>(w);
   const W* bp = static_cast<const W*>(b);
   T* yp = static_cast<T*>(y);
 #define ROWNORM_LAUNCH(V)                                                                    \
-  rownorm_kernel<T, W, V, kCenter><<<rows, threads, 0, st>>>(xp, wp, bp, yp, d, x_stride, eps); \
+  rownorm_kernel<T, W, V, kCenter, kGate><<<rows, threads, 0, st>>>(xp, gp, wp, bp, yp, d, \
+                                                                     x_stride, g_stride, eps); \
   break;
   switch (per <= 1 ? 1 : per <= 2 ? 2 : per <= 4 ? 4 : per <= 8 ? 8 : per <= 16 ? 16 : 0) {
     case 1: ROWNORM_LAUNCH(1)
@@ -238,5 +252,32 @@ extern "C" int rownorm_fwd(int x_dtype, int w_dtype, int center, const void* x, 
   if (x_dtype == 1)
     return launch_t<__nv_bfloat16>(w_dtype, center, x, w, b, y, rows, d, x_stride, eps, threads,
                                    st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gated RMS norm: y = the RMS norm of x * silu(g), row by row; g has
+// x's dtype and its rows are `g_stride` elements apart. Otherwise as
+// `rownorm_fwd` with center 0.
+extern "C" int rownorm_gated_fwd(int x_dtype, int w_dtype, const void* x, const void* g,
+                                 const void* w, void* y, int rows, int d, long long x_stride,
+                                 long long g_stride, float eps, int threads, void* stream) {
+  if (rows < 1 || d < 8 || d > kMaxD || d % 8 != 0 || x_stride < d || x_stride % 8 != 0 ||
+      g_stride < d || g_stride % 8 != 0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || g == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch<float, float, false, true>(x, w, nullptr, y, rows, d, x_stride, eps, threads,
+                                             st, g, g_stride);
+  if (x_dtype == 0 && w_dtype == 1)
+    return launch<float, __nv_bfloat16, false, true>(x, w, nullptr, y, rows, d, x_stride, eps,
+                                                     threads, st, g, g_stride);
+  if (x_dtype == 1 && w_dtype == 0)
+    return launch<__nv_bfloat16, float, false, true>(x, w, nullptr, y, rows, d, x_stride, eps,
+                                                     threads, st, g, g_stride);
+  if (x_dtype == 1 && w_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, false, true>(x, w, nullptr, y, rows, d,
+                                                             x_stride, eps, threads, st, g,
+                                                             g_stride);
   return (int)cudaErrorInvalidValue;
 }

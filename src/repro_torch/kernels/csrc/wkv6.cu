@@ -71,7 +71,10 @@
 //    one fixed order. It is also what `previous_design` times.
 // Both are the same bit for bit run to run. The final state may be
 // written over the initial one: each thread reads its element(s) before
-// it writes them, and blocks own disjoint slices.
+// it writes them, and blocks own disjoint slices. The sequential design
+// takes an optional per-row `active` flag (decode over the arena): a row
+// whose flag is off outputs 0 and keeps its state (copied to s_last when
+// that is another buffer), so a held lease is not stepped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +103,7 @@ __global__ void __launch_bounds__(kThreads) wkv6_kernel(
     const float* s0,           // (B, H, K, V) or null (zeros); may alias s_last
     TR* __restrict__ out,      // (B, S, H, V)
     float* s_last,             // (B, H, K, V)
+    const bool* active,        // (B,) or null (every row)
     int S, int H, int K, int V) {
   __shared__ __align__(16) float sr[kChunk][kMax];
   __shared__ __align__(16) float sk[kChunk][kMax];
@@ -112,11 +116,19 @@ __global__ void __launch_bounds__(kThreads) wkv6_kernel(
   const int h = bh - b * H;
   const int j = threadIdx.x;
   const bool col = j < V;
+  const size_t sbase = (size_t)bh * K * V;
+  if (active != nullptr && !active[b]) {
+    for (int t = 0; t < S && col; ++t) store(out + ((size_t)b * S + t) * H * V + (size_t)h * V + j, 0.f);
+    if (col && s_last != s0) {
+      for (int i = 0; i < K; ++i)
+        s_last[sbase + (size_t)i * V + j] = s0 != nullptr ? s0[sbase + (size_t)i * V + j] : 0.f;
+    }
+    return;
+  }
 
   su[j] = j < K ? to_float(u[(size_t)h * K + j]) : 0.f;
 
   float st[kMax];
-  const size_t sbase = (size_t)bh * K * V;
 #pragma unroll
   for (int i = 0; i < kMax; ++i)
     st[i] = (s0 != nullptr && col && i < K) ? s0[sbase + (size_t)i * V + j] : 0.f;
@@ -175,12 +187,13 @@ __global__ void __launch_bounds__(kThreads) wkv6_kernel(
 
 template <typename TR, typename TW>
 int launch(const void* r, const void* k, const void* v, const void* w, const void* u,
-           const void* s0, void* out, void* s_last, int B, int S, int H, int K, int V,
-           cudaStream_t stream) {
+           const void* s0, void* out, void* s_last, const void* active, int B, int S, int H,
+           int K, int V, cudaStream_t stream) {
   wkv6_kernel<TR, TW><<<B * H, kThreads, 0, stream>>>(
       static_cast<const TR*>(r), static_cast<const TR*>(k), static_cast<const TR*>(v),
       static_cast<const TW*>(w), static_cast<const TR*>(u), static_cast<const float*>(s0),
-      static_cast<TR*>(out), static_cast<float*>(s_last), S, H, K, V);
+      static_cast<TR*>(out), static_cast<float*>(s_last), static_cast<const bool*>(active), S,
+      H, K, V);
   return (int)cudaGetLastError();
 }
 
@@ -188,23 +201,25 @@ int launch(const void* r, const void* k, const void* v, const void* w, const voi
 }  // namespace
 
 // r_dtype (r, k, v, u, out) and w_dtype: 0 = float32, 1 = bfloat16.
-// s0 may be null (a zero initial state) and may equal s_last.
+// s0 may be null (a zero initial state) and may equal s_last. active (B,)
+// bool may be null (every row stepped).
 // Returns the launch's cudaGetLastError() (0 on success).
 extern "C" int wkv6_fwd(int r_dtype, int w_dtype, const void* r, const void* k,
                         const void* v, const void* w, const void* u, const void* s0,
-                        void* out, void* s_last, int B, int S, int H, int K, int V,
-                        void* stream) {
+                        void* out, void* s_last, const void* active, int B, int S, int H,
+                        int K, int V, void* stream) {
   if (B < 1 || S < 1 || H < 1 || K < 1 || K > kMax || V < 1 || V > kMax ||
       (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r_dtype == 0 && w_dtype == 0)
-    return launch<float, float>(r, k, v, w, u, s0, out, s_last, B, S, H, K, V, st);
+    return launch<float, float>(r, k, v, w, u, s0, out, s_last, active, B, S, H, K, V, st);
   if (r_dtype == 1 && w_dtype == 0)
-    return launch<__nv_bfloat16, float>(r, k, v, w, u, s0, out, s_last, B, S, H, K, V, st);
+    return launch<__nv_bfloat16, float>(r, k, v, w, u, s0, out, s_last, active, B, S, H, K, V,
+                                        st);
   if (r_dtype == 1 && w_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(r, k, v, w, u, s0, out, s_last, B, S, H, K,
-                                                V, st);
+    return launch<__nv_bfloat16, __nv_bfloat16>(r, k, v, w, u, s0, out, s_last, active, B, S,
+                                                H, K, V, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -27,6 +27,12 @@ result back with ``from_local``. Both are differentiable, so the
 backward kernels run the same way. A ``meta`` or fake tensor raises: no
 kernel runs on it.
 
+``ssd_chunk`` and ``ssd_step`` (Mamba-2's prefill and decode) route the
+same way to ``kernels/ssd_chunk.py`` / ``ssd_step.py`` or to their plain
+twins (``ref.ssd_chunk_plain``, ``ref.ssd_step_plain``); neither has a
+backward kernel, so a gradient through them on the card raises (training
+the kind goes through autograd of the twins, off the card).
+
 ``rownorm`` (the model's RMS and layer norms) routes like the others:
 the model calls it for every impl but ``"dense"``, which runs the plain
 chain itself. Its gradient on the card is ``rownorm.RownormFn``, whose
@@ -47,6 +53,8 @@ from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import rglru_bwd as _rglru_bwd
 from repro_torch.kernels import rownorm as _rownorm
+from repro_torch.kernels import ssd_chunk as _ssd_chunk
+from repro_torch.kernels import ssd_step as _ssd_step
 from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels import wkv6_bwd as _wkv6_bwd
 
@@ -59,6 +67,8 @@ _KERNELS = {
     "rglru_scan": _rglru,
     "rglru_bwd": _rglru_bwd,
     "rownorm": _rownorm,
+    "ssd_chunk": _ssd_chunk,
+    "ssd_step": _ssd_step,
 }
 
 
@@ -247,22 +257,26 @@ def wkv6(
     state: Optional[torch.Tensor] = None,  # (B, H, K, V) float32
     *,
     state_out: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,  # (B,) bool: rows stepped
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``state_out`` (optional, may be ``state``) receives the last state
     in place: the kernel writes it there directly, the plain path copies.
     The kernel refuses it when a gradient is required. On a mesh each
-    rank's shard runs the kernel and ``state_out`` is then copied into."""
-    if any(is_dtensor(t) for t in (r, k, v, w, u, state)):
+    rank's shard runs the kernel and ``state_out`` is then copied into.
+    ``active`` (decode) marks the rows stepped: a held row's state is
+    left as it was (``state_out`` takes the state it came in with) and
+    its output is 0."""
+    if any(is_dtensor(t) for t in (r, k, v, w, u, state, active)):
         st = {"batch": 0, "heads": 1}
-        out, new = mesh_call(wkv6, [r, k, v, w, u, state],
-                             [_BATCH_HEADS] * 4 + [{"heads": 0}, st], [_BATCH_HEADS, st])
+        out, new = mesh_call(lambda *a: wkv6(*a[:6], active=a[6]), [r, k, v, w, u, state, active],
+                             [_BATCH_HEADS] * 4 + [{"heads": 0}, st, {"batch": 0}],
+                             [_BATCH_HEADS, st])
         if state_out is not None:
             state_out.copy_(new)
             new = state_out
         return out, new
-    if _on_cuda(r):
-        return _wkv6.wkv6(r, k, v, w, u, state, state_out=state_out)
-    return _wkv6.wkv6_plain(r, k, v, w, u, state, state_out=state_out)
+    fn = _wkv6.wkv6 if _on_cuda(r) else _wkv6.wkv6_plain
+    return fn(r, k, v, w, u, state, state_out=state_out, active=active)
 
 
 def rownorm(
@@ -272,16 +286,37 @@ def rownorm(
     *,
     eps: float,
     center: bool,
+    gate: Optional[torch.Tensor] = None,  # x's shape: RMS norm of x * silu(gate)
 ) -> torch.Tensor:
     """Layer norm when ``center``, else RMS norm with weight ``1 + w``,
-    over x's last dim; see ``kernels/rownorm.py``."""
-    if is_dtensor(x) or is_dtensor(w) or is_dtensor(b):
+    over x's last dim (of ``x * silu(gate)`` with a gate); see
+    ``kernels/rownorm.py``."""
+    if is_dtensor(x) or is_dtensor(w) or is_dtensor(b) or is_dtensor(gate):
         rows = {f"row{i}": i for i in range(x.dim() - 1)}
-        return mesh_call(lambda *a: rownorm(*a, eps=eps, center=center), [x, w, b],
-                         [rows, {}, {}], [rows])
+        return mesh_call(lambda *a: rownorm(*a[:3], eps=eps, center=center, gate=a[3]),
+                         [x, w, b, gate], [rows, {}, {}, rows], [rows])
     if _on_cuda(x):
-        return _rownorm.rownorm(x, w, b, eps=eps, center=center)
-    return _rownorm.rownorm_plain(x, w, b, eps=eps, center=center)
+        return _rownorm.rownorm(x, w, b, eps=eps, center=center, gate=gate)
+    return _rownorm.rownorm_plain(x, w, b, eps=eps, center=center, gate=gate)
+
+
+def ssd_chunk(xbc, conv_w, conv_b, dt, dt_bias, a_log, d, *, state_size: int,
+              last_state: bool = True):
+    """Mamba-2's prefill from a zero state, its conv included: (y (B, S, H,
+    P), last state (B, H, P, N) float32 or None); see
+    ``kernels/ssd_chunk.py``. (The meshed dry run takes ``impl="dense"``,
+    which does not come here.)"""
+    args = [xbc, conv_w, conv_b, dt, dt_bias, a_log, d]
+    if _on_cuda(xbc):
+        return _ssd_chunk.ssd_chunk(*args, state_size=state_size, last_state=last_state)
+    return _ssd_chunk.ssd_chunk_plain(*args, state_size=state_size)
+
+
+def ssd_step(xbc, dt, conv_state, conv_w, conv_b, dt_bias, a_log, d, state, active=None):
+    """One decode token of Mamba-2's mixer over every arena row, both
+    states in place on the ``active`` rows; see ``kernels/ssd_step.py``."""
+    fn = _ssd_step.ssd_step if _on_cuda(xbc) else _ssd_step.ssd_step_plain
+    return fn(xbc, dt, conv_state, conv_w, conv_b, dt_bias, a_log, d, state, active)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -23,8 +23,14 @@ CPU tests can compare algorithms without float32 summation order.
 kernel's two passes (per-split partials, then their combine in split
 order); ``wkv6_chunked_plain`` is the plain twin of the chunked wkv6
 kernel's arithmetic. ``rmsnorm_ref`` and ``layernorm_ref`` are the
-model's norms as eager float32 chains, and ``rownorm_plain`` chooses
-between them as the row-norm kernel does.
+model's norms as eager float32 chains (RMS with an optional SiLU gate,
+Mamba-2's ``RMSNorm(y * silu(z))``), and ``rownorm_plain`` chooses
+between them as the row-norm kernel does. ``ssd_ref`` is Mamba-2's
+state-space recurrence stepped token by token, ``ssd_chunked_plain`` the
+chunked arithmetic of the ``ssd_chunk`` kernel, ``ssd_chunk_plain`` its
+twin (the conv and SiLU, ``ssd_conv``, then that) and ``ssd_step_plain``
+the twin of the ``ssd_step`` decode kernel (conv window, state step, held
+rows untouched).
 
 One departure from ``repro.kernels.ref``: a decode row with NO live slot
 (``active`` off, or every slot masked) outputs exact 0, which is what
@@ -36,6 +42,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -927,11 +934,15 @@ def wkv6_bwd_chunked_plain(
             None if state is None else d_state0)
 
 
-def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+                gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """RMS norm over the last dim with weight ``1 + weight``, as an eager
-    float32 chain; the result in x's dtype."""
+    float32 chain; the result in x's dtype. With ``gate`` (x's shape) the
+    row normalised is ``x * silu(gate)``, in float32."""
     dtype = x.dtype
     x = x.float()
+    if gate is not None:
+        x = x * F.silu(gate.float())
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
@@ -951,9 +962,182 @@ def layernorm_ref(
 
 
 def rownorm_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
-                  eps: float, center: bool) -> torch.Tensor:
+                  eps: float, center: bool, gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The row-norm kernel's function (``kernels/rownorm.py``): layer norm
-    when ``center``, else RMS norm."""
+    when ``center``, else RMS norm (of ``x * silu(gate)`` with a gate)."""
     if center:
+        if gate is not None:
+            raise ValueError("rownorm's gate is for RMS norm only")
         return layernorm_ref(x, w, b, eps)
-    return rmsnorm_ref(x, w, eps)
+    return rmsnorm_ref(x, w, eps, gate)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 state-space duality (SSD)
+# ---------------------------------------------------------------------------
+
+SSD_CHUNK = 64  # steps per chunk of the chunked kernel (kL in csrc/ssd_chunk.cu)
+
+
+def ssd_inputs(dt: torch.Tensor, dt_bias: torch.Tensor, a_log: torch.Tensor, acc=torch.float32):
+    """(step sizes softplus(dt + dt_bias), decay rates A = -exp(a_log)), in ``acc``."""
+    return F.softplus(dt.to(acc) + dt_bias.to(acc)), -torch.exp(a_log.to(acc))
+
+
+def _heads_of_groups(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., G, N) -> (..., H, N): head h reads group h // (H / G)."""
+    return t.repeat_interleave(heads // t.shape[-2], dim=-2)
+
+
+def ssd_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) before the softplus
+    dt_bias: torch.Tensor,  # (H,)
+    a_log: torch.Tensor,  # (H,)
+    b: torch.Tensor,  # (B, S, G, N)
+    c: torch.Tensor,  # (B, S, G, N)
+    d: torch.Tensor,  # (H,)
+    state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2's recurrence, one token at a time, per head h with a P x N
+    state: dt = softplus(dt + dt_bias), A = -exp(a_log),
+    S_t = exp(dt_t A) S_{t-1} + dt_t x_t (x) B_t, y_t = S_t C_t + D x_t.
+    Returns (y in x's dtype, last state in float32; float64 throughout
+    for float64 inputs)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    st = (torch.zeros((bsz, h, p, n), dtype=acc, device=x.device) if state is None
+          else state.to(acc))
+    step, rate = ssd_inputs(dt, dt_bias, a_log, acc)
+    xf, df = x.to(acc), d.to(acc)
+    bh, ch = _heads_of_groups(b.to(acc), h), _heads_of_groups(c.to(acc), h)
+    ys = []
+    for t in range(s):
+        dtt = step[:, t]  # (B, H)
+        st = (torch.exp(dtt * rate)[..., None, None] * st
+              + (dtt[..., None] * xf[:, t])[..., None] * bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", st, ch[:, t]) + df[:, None] * xf[:, t])
+    return torch.stack(ys, dim=1).to(x.dtype), st
+
+
+def ssd_chunked_plain(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) before the softplus
+    dt_bias: torch.Tensor,  # (H,)
+    a_log: torch.Tensor,  # (H,)
+    b: torch.Tensor,  # (B, S, G, N)
+    c: torch.Tensor,  # (B, S, G, N)
+    d: torch.Tensor,  # (H,)
+    *,
+    chunk: int = SSD_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of the chunked ``ssd_chunk`` kernel's arithmetic,
+    from a zero state, in float32. S is cut into ``chunk``-step chunks
+    (the last one ragged; the result does not depend on the length).
+    With a_t = dt_t A and L_t its running sum inside the chunk:
+
+    - each chunk's state contribution sum_s (e^(L_end - L_s) dt_s x_s) (x) B_s
+      and its decay e^(L_end), carried chunk by chunk: S_c enters chunk c;
+    - y_t = e^(L_t) C_t . S_c + sum_{s<=t} (C_t . B_s) e^(L_t - L_s) dt_s x_s
+      + D x_t.
+
+    Returns (y in x's dtype, last state in float32)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    f32 = torch.float32
+    step, rate = ssd_inputs(dt, dt_bias, a_log, f32)
+    xf = x.to(f32)
+    bh, ch = _heads_of_groups(b.to(f32), h), _heads_of_groups(c.to(f32), h)
+    st = torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(c0 + chunk, s))
+        a = step[:, sl] * rate  # (B, L, H)
+        cum = torch.cumsum(a, dim=1)
+        w_out = torch.exp(cum[:, -1:] - cum) * step[:, sl]  # (B, L, H)
+        scores = torch.einsum("bthn,bshn->bhts", ch[:, sl], bh[:, sl])
+        ln = cum.shape[1]
+        causal = torch.ones(ln, ln, dtype=torch.bool, device=x.device).tril()
+        cum_h = cum.permute(0, 2, 1)  # (B, H, L)
+        gap = (cum_h[..., :, None] - cum_h[..., None, :]).masked_fill(~causal, float("-inf"))
+        m = scores * torch.exp(gap) * step[:, sl].permute(0, 2, 1)[:, :, None, :]
+        y = (torch.einsum("bhts,bshp->bthp", m, xf[:, sl])
+             + torch.exp(cum)[..., None] * torch.einsum("bthn,bhpn->bthp", ch[:, sl], st)
+             + d.to(f32)[:, None] * xf[:, sl])
+        ys.append(y)
+        contrib = torch.einsum("bshp,bshn->bhpn", w_out[..., None] * xf[:, sl], bh[:, sl])
+        st = torch.exp(cum[:, -1])[..., None, None] * st + contrib
+    return torch.cat(ys, dim=1).to(x.dtype), st
+
+
+def ssd_conv(xbc: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, heads: int,
+             state_size: int, window: Optional[torch.Tensor] = None):
+    """Mamba-2's causal depthwise conv and SiLU over xbc (B, S, H P + 2 N),
+    in float32: x (B, S, H, P), B and C (B, S, 1, N). ``window`` (B, W - 1,
+    H P + 2 N) holds the inputs before the first token (zeros when None)."""
+    bsz, s, cc = xbc.shape
+    w = conv_w.shape[0]
+    f32 = torch.float32
+    hist = (torch.zeros((bsz, w - 1, cc), dtype=f32, device=xbc.device) if window is None
+            else window.to(f32))
+    hist = torch.cat([hist, xbc.to(f32)], dim=1)
+    u = sum(hist[:, k:k + s] * conv_w[k].to(f32) for k in range(w)) + conv_b.to(f32)
+    u = F.silu(u)
+    hp = cc - 2 * state_size
+    return (u[..., :hp].unflatten(-1, (heads, hp // heads)),
+            u[..., hp:hp + state_size].unflatten(-1, (1, state_size)),
+            u[..., hp + state_size:].unflatten(-1, (1, state_size)))
+
+
+def ssd_chunk_plain(
+    xbc: torch.Tensor,  # (B, S, H P + 2 N) before the conv
+    conv_w: torch.Tensor,  # (W, H P + 2 N)
+    conv_b: torch.Tensor,  # (H P + 2 N,)
+    dt: torch.Tensor,  # (B, S, H) before the softplus
+    dt_bias: torch.Tensor,  # (H,)
+    a_log: torch.Tensor,  # (H,)
+    d: torch.Tensor,  # (H,)
+    *,
+    state_size: int,
+    chunk: int = SSD_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``ssd_chunk`` kernel's function: the conv and SiLU (``ssd_conv``,
+    float32) from a zero window, then ``ssd_chunked_plain``. Returns (y in
+    xbc's dtype, last state in float32)."""
+    x, b, c = ssd_conv(xbc, conv_w, conv_b, dt.shape[-1], state_size)
+    y, last = ssd_chunked_plain(x, dt, dt_bias, a_log, b, c, d, chunk=chunk)
+    return y.to(xbc.dtype), last
+
+
+def ssd_step_plain(
+    xbc: torch.Tensor,  # (B, H P + 2 N) this token's conv inputs (before the conv)
+    dt: torch.Tensor,  # (B, H) before the softplus
+    conv_state: torch.Tensor,  # (B, W - 1, H P + 2 N) float32, the last W - 1 inputs
+    conv_w: torch.Tensor,  # (W, H P + 2 N)
+    conv_b: torch.Tensor,  # (H P + 2 N,)
+    dt_bias: torch.Tensor,  # (H,)
+    a_log: torch.Tensor,  # (H,)
+    d: torch.Tensor,  # (H,)
+    state: torch.Tensor,  # (B, H, P, N) float32
+    active: Optional[torch.Tensor] = None,  # (B,) bool; None = every row
+) -> torch.Tensor:
+    """One decode token of a Mamba-2 mixer (the ``ssd_step`` kernel's
+    function): the causal conv over the carried window and this token's
+    inputs, SiLU, then one ``ssd_ref`` step. ``conv_state`` and ``state``
+    are updated IN PLACE on the active rows only; a held row keeps both
+    and outputs 0. Returns y (B, H P) in xbc's dtype."""
+    bsz = xbc.shape[0]
+    h, p, n = state.shape[1:]
+    f32 = torch.float32
+    window = torch.cat([conv_state.to(f32), xbc.to(f32)[:, None]], dim=1)  # (B, W, C)
+    conv = F.silu((window * conv_w.to(f32)).sum(dim=1) + conv_b.to(f32))
+    x = conv[:, : h * p].reshape(bsz, 1, h, p)
+    bc = conv[:, h * p:].reshape(bsz, 1, 2, 1, n)
+    y, new = ssd_ref(x, dt[:, None], dt_bias, a_log, bc[:, :, 0], bc[:, :, 1], d, state)
+    y = y[:, 0].reshape(bsz, h * p)
+    rows = (torch.ones(bsz, dtype=torch.bool, device=xbc.device) if active is None
+            else active.to(torch.bool))
+    state.copy_(torch.where(rows[:, None, None, None], new, state))
+    conv_state.copy_(torch.where(rows[:, None, None], window[:, 1:], conv_state))
+    return torch.where(rows[:, None], y, y.new_zeros(())).to(xbc.dtype)

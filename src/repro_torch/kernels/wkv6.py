@@ -34,6 +34,11 @@ inputs; its backward is the hand-written backward kernel
 (``wkv6_bwd.py``, counted there), which recomputes the states from them.
 ``state_out`` (the decode arena, written in place) is refused there.
 Otherwise the call saves nothing, so serving is unchanged.
+
+``active`` (B,) bool, for decode over the arena: a row whose flag is off
+is not stepped: its output is 0 and its state stays as it came in
+(``state_out`` takes it), in the sequential kernel's own launch. Only
+the sequential design takes it.
 """
 from __future__ import annotations
 
@@ -54,7 +59,7 @@ launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD = 64  # K and V at most (the state column lives in registers)
 _ARGTYPES = {
-    "wkv6_fwd": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    "wkv6_fwd": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
     "wkv6_chunked_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
@@ -84,16 +89,22 @@ def wkv6_plain(
     state: Optional[torch.Tensor] = None,
     *,
     state_out: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of ``wkv6`` (``ref.wkv6_ref``), any device. The
-    last state is copied into ``state_out`` when given."""
+    last state is copied into ``state_out`` when given. Rows ``active``
+    marks off keep their state and output 0."""
     out, last = wkv6_ref(r, k, v, w, u, state)
+    if active is not None:
+        keep = torch.zeros_like(last) if state is None else state.to(last.dtype)
+        last = torch.where(active[:, None, None, None], last, keep)
+        out = torch.where(active[:, None, None, None], out, out.new_zeros(()))
     if state_out is not None:
         last = state_out.copy_(last)
     return out, last
 
 
-def _launch(r, k, v, w, u, state, state_out, chunked: bool):
+def _launch(r, k, v, w, u, state, state_out, chunked: bool, active=None):
     """Check the arguments and run one call of the chosen design."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 kernel needs CUDA tensors, got {r.device}")
@@ -116,6 +127,10 @@ def _launch(r, k, v, w, u, state, state_out, chunked: bool):
     _check("u", u, (h, dk), r.dtype, dev)
     if state is not None:
         _check("state", state, (b, h, dk, dv), torch.float32, dev)
+    if active is not None:
+        if chunked:
+            raise ValueError("wkv6: active rows are for the sequential design (decode)")
+        _check("active", active, (b,), torch.bool, dev)
     if state_out is None:
         state_out = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
     else:
@@ -134,7 +149,9 @@ def _launch(r, k, v, w, u, state, state_out, chunked: bool):
             _DTYPES[w.dtype], *ptrs, slots, slots + 4 * b * h * n * dk * dv,
             b, s, h, dk, dv, stream)
     else:
-        err = _fn("wkv6_fwd")(_DTYPES[r.dtype], _DTYPES[w.dtype], *ptrs, b, s, h, dk, dv, stream)
+        err = _fn("wkv6_fwd")(_DTYPES[r.dtype], _DTYPES[w.dtype], *ptrs,
+                              None if active is None else active.data_ptr(), b, s, h, dk, dv,
+                              stream)
     if err:
         raise RuntimeError(f"wkv6 launch failed: cudaError {err}")
     return out, state_out
@@ -171,6 +188,7 @@ def wkv6(
     state: Optional[torch.Tensor] = None,  # (B, H, K, V) float32; None = zeros
     *,
     state_out: Optional[torch.Tensor] = None,  # (B, H, K, V) float32
+    active: Optional[torch.Tensor] = None,  # (B,) bool: rows stepped
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel that ``uses_chunked`` picks. CUDA tensors
     only: raises otherwise. Returns (o, last state). The last state goes to
@@ -184,7 +202,7 @@ def wkv6(
             raise ValueError("wkv6: state_out (written in place) cannot take part in autograd; "
                              "pass state_out=None when a gradient is required")
         return WKV6Fn.apply(r, k, v, w, u, state)
-    out = _launch(r, k, v, w, u, state, state_out, uses_chunked(r.dtype, r.shape[1]))
+    out = _launch(r, k, v, w, u, state, state_out, uses_chunked(r.dtype, r.shape[1]), active)
     launches += 1
     return out
 

@@ -193,6 +193,7 @@ def mha(
     rope_kind: str = "rope",  # rope | mrope | none
     impl: str = "xla",  # xla | pallas | dense
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attn
+    q_scale: Optional[float] = None,  # q's factor after rotation (Granite's multiplier)
 ) -> torch.Tensor:
     """Self- (or cross-) attention over a full sequence (prefill).
 
@@ -217,6 +218,8 @@ def mha(
         causal = False
         kv_pos = torch.arange(k.shape[1], device=x.device).expand(x.shape[0], k.shape[1])
     q = _rotate(q, rot, rope_theta, rope_kind)
+    if q_scale is not None:
+        q = q * q_scale
     if impl in KERNEL_IMPLS:
         mask_pos = {}
         if kv_override is not None or rope_kind == "mrope":
@@ -248,6 +251,7 @@ def mha_decode(
     mrope_position: Optional[torch.Tensor] = None,  # (3, B, 1)
     impl: str = "xla",
     active: Optional[torch.Tensor] = None,  # (B,) live-slot bitmap (arena)
+    q_scale: Optional[float] = None,  # as in ``mha``
 ) -> torch.Tensor:
     """One-token attention against a KV cache. The caller has already
     written this token's K/V into the cache; q is projected and rotated
@@ -263,6 +267,8 @@ def mha_decode(
         q = q + p["bq"]
     q = _rotate(q, mrope_position if rope_kind == "mrope" else position[:, None],
                 rope_theta, rope_kind)
+    if q_scale is not None:
+        q = q * q_scale
     if impl in KERNEL_IMPLS:
         o = kernel_ops.decode_attention(
             q.contiguous(), cache_k, cache_v, position, kv_positions, kv_valid,

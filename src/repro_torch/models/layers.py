@@ -112,13 +112,16 @@ def build_axes(spec: Any) -> Any:
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
-            impl: str = "xla") -> torch.Tensor:
-    """RMS norm with weight ``1 + weight``, float32 statistics, in x's dtype:
-    the row-norm kernel (``kernel_ops.rownorm``) unless ``impl`` is
-    ``"dense"``, which runs the plain chain."""
+            impl: str = "xla", gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMS norm with weight ``1 + weight``, float32 statistics, in x's dtype
+    (of ``x * silu(gate)`` with a gate): the row-norm kernel
+    (``kernel_ops.rownorm``) unless ``impl`` is ``"dense"``, which runs the
+    plain chain."""
     if impl == "dense":
-        return kernel_ref.rmsnorm_ref(x, weight, eps)
-    return kernel_ops.rownorm(x, weight, eps=eps, center=False)
+        return kernel_ref.rmsnorm_ref(x, weight, eps, gate)
+    if gate is None:
+        return kernel_ops.rownorm(x, weight, eps=eps, center=False)
+    return kernel_ops.rownorm(x, weight, eps=eps, center=False, gate=gate)
 
 
 def layernorm(
@@ -142,10 +145,15 @@ def norm_spec(d: int, kind: str) -> Dict[str, Param]:
 
 
 def apply_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str,
-               impl: str = "xla") -> torch.Tensor:
+               impl: str = "xla", eps: Optional[float] = None) -> torch.Tensor:
+    """The block's norm; ``eps`` None takes the kind's own (1e-6 RMS, 1e-5
+    layer)."""
     if kind == "rmsnorm":
-        return rmsnorm(x, p["scale"], impl=impl)
-    return layernorm(x, p["scale"], p["bias"], impl=impl)
+        return rmsnorm(x, p["scale"], impl=impl) if eps is None else rmsnorm(
+            x, p["scale"], eps, impl=impl)
+    if eps is None:
+        return layernorm(x, p["scale"], p["bias"], impl=impl)
+    return layernorm(x, p["scale"], p["bias"], eps, impl=impl)
 
 
 # ---------------------------------------------------------------------------

@@ -258,6 +258,16 @@ def rwkv6_wkv_scan(
     return wkv6_plain(r.float(), k, v, w, u, state, state_out=state_out)
 
 
+def _keep_held(leaf: torch.Tensor, new: torch.Tensor, active: Optional[torch.Tensor]) -> None:
+    """Write a recurrent state leaf in place: ``new`` on the rows
+    ``active`` marks (every row when None), the old value on the rest."""
+    if active is None:
+        leaf.copy_(new)
+    else:
+        rows = active.reshape((-1,) + (1,) * (leaf.dim() - 1))
+        leaf.copy_(torch.where(rows, new.to(leaf.dtype), leaf))
+
+
 def rwkv6_timemix(
     p: Dict,
     x: torch.Tensor,  # (B, S, D)
@@ -265,9 +275,13 @@ def rwkv6_timemix(
     state: Optional[Dict] = None,
     impl: str = "xla",
     wkv_out: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Time-mix. ``wkv_out`` (optional; may be ``state["wkv"]``) receives
-    the new wkv state in place, as the decode arena wants it."""
+    the new wkv state in place, as the decode arena wants it. ``active``
+    (decode) marks the rows the recurrence steps: a held row's wkv state
+    stays as it was (the kernel skips it; the plain path writes
+    ``wkv_out`` through ``_keep_held``)."""
     _check_impl(impl)
     b, s, d = x.shape
     hd = d // n_heads
@@ -285,12 +299,13 @@ def rwkv6_timemix(
     if impl in KERNEL_IMPLS:
         out, wkv_new = kernel_ops.wkv6(
             rh.contiguous(), kh.contiguous(), vh.contiguous(), wh.contiguous(),
-            p["bonus_u"].contiguous(), wkv_state, state_out=wkv_out,
+            p["bonus_u"].contiguous(), wkv_state, state_out=wkv_out, active=active,
         )
     else:
-        out, wkv_new = rwkv6_wkv_scan(
-            rh, kh, vh, wh, p["bonus_u"], wkv_state, state_out=wkv_out
-        )
+        out, wkv_new = rwkv6_wkv_scan(rh, kh, vh, wh, p["bonus_u"], wkv_state)
+        if wkv_out is not None:
+            _keep_held(wkv_out, wkv_new, active)
+            wkv_new = wkv_out
     # Per-head group norm (float32), then gate and output projection.
     oh = out.float()
     mu = oh.mean(dim=-1, keepdim=True)

@@ -24,10 +24,29 @@ full-size gradient per layer; they are cached (for decode) only while no
 gradient is recorded.
 
 Block kinds: ``attn`` (global attention), ``swa`` (sliding-window
-attention over a ring cache), ``rglru`` (Griffin recurrent block) and
-``rwkv`` (RWKV-6 time-mix with its channel-mix as the FFN). An ``attn``
+attention over a ring cache), ``rglru`` (Griffin recurrent block),
+``rwkv`` (RWKV-6 time-mix with its channel-mix as the FFN) and
+``mamba2`` (Mamba-2 mixer, ``models/mamba2.py``; port-only). An ``attn``
 or ``swa`` block's FFN is dense, or a mixture of experts
-(``models/moe.py``) when the config has experts.
+(``models/moe.py``) when the config has experts; a ``mamba2`` block's is
+dense.
+
+Granite's multipliers (``ModelConfig``): the embedding times
+``embedding_multiplier``, each block's mixer and FFN outputs times
+``residual_multiplier`` before they join the residual stream, the
+attention scores times ``attention_multiplier`` (q pre-scaled by it times
+sqrt(head_dim), so the kernels keep their 1/sqrt(head_dim)), the logits
+over ``logits_scaling``, every norm at ``norm_eps``. At their defaults
+none of them runs, so other models compute bit for bit what they did.
+
+Decode steps the rows ``active`` marks (every row when None). Attention
+writes every row's K/V at its cursor (a held row's write lands where its
+next real token overwrites it) and skips dead rows; a recurrent state
+(rwkv's ``shift``, ``wkv``, ``channel``, rglru's ``h``, ``conv``, mamba2's
+``ssm``, ``conv``) advances only on active rows, so a held lease keeps its
+state for its next token. The reference advances recurrent states on
+every row (``repro/serving/engine.py``); the port departs from it there
+(ROADMAP, "Deliberate departures").
 
 M-RoPE models (qwen2-vl) take ``(3, B, S)`` positions in ``forward`` and
 ``prefill`` (temporal, height, width streams; the vision frontend that
@@ -53,6 +72,12 @@ from repro_torch.models.attention import (
     mha_decode,
     project_kv,
 )
+from repro_torch.models.mamba2 import (
+    mamba2_block,
+    mamba2_decode,
+    mamba2_init_state,
+    mamba2_spec,
+)
 from repro_torch.models.layers import (
     Param,
     abstract_params,
@@ -69,6 +94,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import apply_moe, apply_moe_dense_reference, moe_spec
 from repro_torch.models.recurrent import (
+    _keep_held,
     griffin_block,
     griffin_block_spec,
     griffin_init_state,
@@ -80,7 +106,7 @@ from repro_torch.models.recurrent import (
 )
 from repro_torch.models.sharding_hooks import constrain, remat_contexts
 
-KINDS = ("attn", "swa", "rglru", "rwkv")
+KINDS = ("attn", "swa", "rglru", "rwkv", "mamba2")
 
 
 def _check_kind(kind: str) -> None:
@@ -124,6 +150,8 @@ def block_spec(cfg: ModelConfig, kind: str) -> Dict:
         )
     elif kind == "rglru":
         spec["mixer"] = griffin_block_spec(d, cfg.d_rnn or d)
+    elif kind == "mamba2":
+        spec["mixer"] = mamba2_spec(cfg)
     else:  # rwkv
         spec["mixer"] = rwkv6_timemix_spec(d, cfg.n_heads)
     spec["norm2"] = norm_spec(d, cfg.norm)
@@ -175,6 +203,20 @@ def model_spec(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 
+def _residual(cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y, y scaled by Granite's ``residual_multiplier`` when set."""
+    m = cfg.residual_multiplier
+    return x + y if m == 1.0 else x + y * m
+
+
+def _q_scale(cfg: ModelConfig) -> Optional[float]:
+    """The factor on q that turns the kernels' 1/sqrt(head_dim) into
+    ``attention_multiplier`` (None: no multiplier)."""
+    if cfg.attention_multiplier is None:
+        return None
+    return cfg.attention_multiplier * math.sqrt(cfg.resolved_head_dim)
+
+
 def _apply_block_full(
     cfg: ModelConfig,
     kind: str,
@@ -184,26 +226,30 @@ def _apply_block_full(
     collect: bool,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict]]:
     """Returns (x_out, MoE aux loss or None, cache_contrib or None)."""
-    h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl)
+    h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl, cfg.norm_eps)
     contrib = None
     if kind in ("attn", "swa"):
         window = cfg.sliding_window if kind == "swa" else None
         y = mha(
             p["mixer"], h, positions, causal=True, window=window,
             rope_theta=cfg.rope_theta, rope_kind=cfg.rope_kind, impl=cfg.impl,
+            q_scale=_q_scale(cfg),
         )
         if collect:
             k, v = project_kv(p["mixer"], h, positions, cfg.rope_theta, cfg.rope_kind)
             contrib = {"k": k, "v": v}
     elif kind == "rglru":
         y, contrib = griffin_block(p["mixer"], h, impl=cfg.impl)
+    elif kind == "mamba2":
+        y, contrib = mamba2_block(cfg, p["mixer"], h, impl=cfg.impl, eps=_eps(cfg),
+                                  last_state=collect)
     else:  # rwkv
         y, contrib = rwkv6_timemix(p["mixer"], h, cfg.n_heads, impl=cfg.impl)
     # On a mesh DTensor lays out each op's result by itself; pinning the
     # residual stream here too (the reference pins it only at the block's
     # end) keeps a pending sum from turning into a sequence shard.
-    x = constrain(x + y, ("batch", "seq", "embed"))
-    h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl)
+    x = constrain(_residual(cfg, x, y), ("batch", "seq", "embed"))
+    h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl, cfg.norm_eps)
     aux = None
     if kind == "rwkv":
         f, chan_state = rwkv6_channelmix(p["ffn"], h2)
@@ -215,7 +261,7 @@ def _apply_block_full(
                            capacity_factor=cfg.moe_capacity_factor)
     else:
         f = apply_mlp(h2, p["ffn"], cfg.activation)
-    x = constrain(x + f, ("batch", "seq", "embed"))
+    x = constrain(_residual(cfg, x, f), ("batch", "seq", "embed"))
     return x, aux, contrib if collect else None
 
 
@@ -231,10 +277,11 @@ def _apply_block_decode(
     mrope_position: Optional[torch.Tensor] = None,  # (3, B, 1) under mrope
 ) -> torch.Tensor:
     """One token through one block; updates ``cache`` in place: this
-    token's K/V for attention kinds, every state leaf for the recurrent
-    ones. As in the reference, recurrent states advance on every row
-    whatever ``active`` says (only attention reads the bitmap)."""
-    h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl)
+    token's K/V for attention kinds (every row), every state leaf for the
+    recurrent ones on the rows ``active`` marks (all when None); a held
+    row's recurrent state stays as it was (a departure from the
+    reference, which advances every row)."""
+    h = apply_norm(x, p["norm1"], cfg.norm, cfg.impl, cfg.norm_eps)
     if kind in ("attn", "swa"):
         pos_for_kv = mrope_position if cfg.rope_kind == "mrope" else cursor[:, None]
         k, v = project_kv(p["mixer"], h, pos_for_kv, cfg.rope_theta, cfg.rope_kind)
@@ -250,25 +297,28 @@ def _apply_block_decode(
             p["mixer"], h, cursor, cache["k"], cache["v"], kv_pos, valid,
             window=window, rope_theta=cfg.rope_theta, rope_kind=cfg.rope_kind,
             mrope_position=mrope_position, impl=cfg.impl, active=active,
+            q_scale=_q_scale(cfg),
         )
     elif kind == "rglru":
         y, state = griffin_block(
             p["mixer"], h, state={"h": cache["h"], "conv": cache["conv"]}, impl=cfg.impl
         )
-        cache["h"].copy_(state["h"])
-        cache["conv"].copy_(state["conv"])
+        _keep_held(cache["h"], state["h"], active)
+        _keep_held(cache["conv"], state["conv"], active)
+    elif kind == "mamba2":
+        y = mamba2_decode(cfg, p["mixer"], h, cache, active, impl=cfg.impl, eps=_eps(cfg))
     else:  # rwkv
         y, state = rwkv6_timemix(
             p["mixer"], h, cfg.n_heads,
             state={"shift": cache["shift"], "wkv": cache["wkv"]},
-            impl=cfg.impl, wkv_out=cache["wkv"],
+            impl=cfg.impl, wkv_out=cache["wkv"], active=active,
         )
-        cache["shift"].copy_(state["shift"])
-    x = x + y
-    h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl)
+        _keep_held(cache["shift"], state["shift"], active)
+    x = _residual(cfg, x, y)
+    h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.impl, cfg.norm_eps)
     if kind == "rwkv":
         f, chan = rwkv6_channelmix(p["ffn"], h2, state=cache["channel"])
-        cache["channel"].copy_(chan)
+        _keep_held(cache["channel"], chan, active)
     elif _is_moe_block(cfg, kind):
         # Decode: a tiny token count; the reference widens capacity to
         # avoid drops (and ignores ``moe_dense``) here.
@@ -276,7 +326,12 @@ def _apply_block_decode(
                          capacity_factor=2.0)
     else:
         f = apply_mlp(h2, p["ffn"], cfg.activation)
-    return x + f
+    return _residual(cfg, x, f)
+
+
+def _eps(cfg: ModelConfig) -> float:
+    """The RMS norms' eps (Mamba-2's gated norm takes the model's)."""
+    return 1e-6 if cfg.norm_eps is None else cfg.norm_eps
 
 
 def _fill_from_prefill(kind: str, cache: Dict, contrib: Dict, positions) -> None:
@@ -314,6 +369,8 @@ def _layer_cache(
         )
     if kind == "rglru":
         return griffin_init_state(batch, cfg.d_rnn or cfg.d_model, device, lead)
+    if kind == "mamba2":
+        return mamba2_init_state(batch, cfg, device, lead)
     return rwkv6_init_state(batch, cfg.d_model, cfg.n_heads, device, lead)
 
 
@@ -394,13 +451,18 @@ class Transformer:
         x = embed_lookup(params["embed"], tokens)
         if self.cfg.embed_scale:
             x = x * math.sqrt(self.cfg.d_model)
+        if self.cfg.embedding_multiplier != 1.0:
+            x = x * self.cfg.embedding_multiplier
         return constrain(x, ("batch", "seq", "embed"))
 
     def _logits(self, params, x):
-        x = apply_norm(x, params["final_norm"], self.cfg.norm, self.cfg.impl)
-        if self.cfg.tie_embeddings:
-            return unembed(x, params["embed"])
-        return x.float() @ params["lm_head"].float()
+        cfg = self.cfg
+        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.impl, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = unembed(x, params["embed"])
+        else:
+            logits = x.float() @ params["lm_head"].float()
+        return logits if cfg.logits_scaling == 1.0 else logits / cfg.logits_scaling
 
     # ----- forward ------------------------------------------------------
     def forward(

@@ -266,6 +266,18 @@ def _wire_live_scheduler(
                 rows.append(lease[2][0])
         return rows
 
+    def count_rows(job, live, step_rows) -> None:
+        """Count a slot-mode decode dispatch's stepped and held rows in
+        ``Metrics`` and on the job (the EDF worker's ``device_submit``
+        span carries them)."""
+        stepped = sum(len(live) if r is None else len(set(r)) for r in step_rows)
+        held = len(live) * len(step_rows) - stepped
+        job.decode_rows = (stepped, held)
+        metrics = metrics_ref.get("metrics")
+        if metrics is not None:
+            metrics.decode_rows_stepped += stepped
+            metrics.decode_rows_held += held
+
     def dispatch_job(job):
         mid, shape = job.category.model_id, job.shape_key
         kind = kind_of(job)
@@ -283,15 +295,16 @@ def _wire_live_scheduler(
             if slot_aware:
                 live = engine.arena(mid, seq).live
                 if live:
-                    return engine.decode_chunk(
+                    rows = [frame_rows(j, mid, seq) for j in job.jobs]
+                    handle = engine.decode_chunk(
                         mid, shape, len(live), job.k, slots=live,
                         payloads=[
                             slot_payload(j, mid, seq) for j in job.jobs
                         ],
-                        step_rows=[
-                            frame_rows(j, mid, seq) for j in job.jobs
-                        ],
+                        step_rows=rows,
                     )
+                    count_rows(job, live, rows)
+                    return handle
             for j in job.jobs:
                 if job_payload(j) is not None and leases is None:
                     raise RuntimeError(
@@ -311,11 +324,14 @@ def _wire_live_scheduler(
                 # through the one step (a subset would clobber the
                 # skipped rows' caches), but only the rows whose stream
                 # has a frame this window are ACTIVE.
-                return engine.dispatch(
+                rows = frame_rows(job, mid, shape[0])
+                handle = engine.dispatch(
                     mid, shape, len(live), kind, slots=live,
                     payload=slot_payload(job, mid, shape[0]),
-                    step_rows=frame_rows(job, mid, shape[0]),
+                    step_rows=rows,
                 )
+                count_rows(job, live, [rows])
+                return handle
         payload = job_payload(job)
         if kind == "decode" and payload is not None:
             if leases is None:

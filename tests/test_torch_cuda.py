@@ -63,7 +63,8 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     after = ops.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "decode_attention": 1, "flash_attention": 1, "flash_attention_bwd": 0, "wkv6": 0,
-        "wkv6_bwd": 0, "rglru_scan": 0, "rglru_bwd": 0, "rownorm": 0}
+        "wkv6_bwd": 0, "rglru_scan": 0, "rglru_bwd": 0, "rownorm": 0, "ssd_chunk": 0,
+        "ssd_step": 0}
 
 
 # (B, S, KV, G, D, window, ring): D in {8, 16, 64, 128, 256}, S in {1, 63,
@@ -457,7 +458,8 @@ def test_recurrent_engine_kernel_path_matches_dense_on_card(cuda, arch, kw):
 # and a full cache), phi4-mini and llama3.
 GRAPH_ARCHS = {"granite-3-2b": {}, "recurrentgemma-9b": {"n_layers": 5}, "rwkv6-1.6b": {},
                "mixtral-8x7b": {"n_experts": 8}, "llama4-maverick-400b-a17b": {},
-               "gemma3-12b": {}, "phi4-mini-3.8b": {}, "llama3-405b": {}}
+               "gemma3-12b": {}, "phi4-mini-3.8b": {}, "llama3-405b": {},
+               "granite-4.0-h-micro": {}}
 GSEQ = 24  # recurrentgemma's 16-slot ring wraps for rows near the end
 
 
@@ -1483,7 +1485,7 @@ def test_recurrent_train_step_through_kernels_matches_dense_on_card(cuda, arch, 
     assert used == {"decode_attention": 0, "flash_attention": 2 * n_swa,
                     "flash_attention_bwd": n_swa, "wkv6": 2 * n_rwkv, "wkv6_bwd": n_rwkv,
                     "rglru_scan": 2 * n_rglru, "rglru_bwd": n_rglru,
-                    "rownorm": 4 * cfg.n_layers + 1}
+                    "rownorm": 4 * cfg.n_layers + 1, "ssd_chunk": 0, "ssd_step": 0}
     rms, ln = layers.rmsnorm, layers.layernorm
     monkeypatch.setattr(layers, "rmsnorm", lambda x, w, eps=1e-6, impl="xla": rms(x, w, eps))
     monkeypatch.setattr(layers, "layernorm",
@@ -1777,3 +1779,162 @@ def test_norm_launches_per_replay_at_published_depth(cuda, arch):
     if arch == "granite-3-2b":
         _decode_replay_matches_eager(cuda, eng, arch)
         assert eng._graphs[("decode", arch, GSEQ)].launches["rownorm"] == 2 * n + 1
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (granite-4.0-h-micro): ssd_chunk, ssd_step, the gated row norm,
+# and held arena rows of every recurrent kind
+# ---------------------------------------------------------------------------
+
+SSD_SIZES = [(4, 16, 16), (64, 64, 128)]  # (H, P, N): the tiny config's, the published
+
+
+def _ssd_chunk_args(cuda, g, b, s, h, p, n, dtype):
+    """xbc and dt as views of one input projection, as the model passes
+    them, the conv's weights and the per-head parameters."""
+    cc = h * p + 2 * n
+    proj = torch.randn((b, s, cc + h + 8), generator=g, device=cuda).to(dtype)
+    return (proj[..., :cc], (0.5 * torch.randn((4, cc), generator=g, device=cuda)).to(dtype),
+            (0.1 * torch.randn(cc, generator=g, device=cuda)).to(dtype), proj[..., cc:cc + h],
+            (torch.randn(h, generator=g, device=cuda) - 3.0).to(dtype),
+            (0.5 * torch.randn(h, generator=g, device=cuda) + 1.0).to(dtype),
+            (1.0 + 0.1 * torch.randn(h, generator=g, device=cuda)).to(dtype))
+
+
+def _ssd_step_args(cuda, g, rows, h, p, n, dtype):
+    cc = h * p + 2 * n
+    proj = torch.randn((rows, cc + h + 8), generator=g, device=cuda).to(dtype)
+    return (proj[:, :cc], proj[:, cc:cc + h], torch.randn((rows, 3, cc), generator=g, device=cuda),
+            (0.5 * torch.randn((4, cc), generator=g, device=cuda)).to(dtype),
+            (0.1 * torch.randn(cc, generator=g, device=cuda)).to(dtype),
+            (torch.randn(h, generator=g, device=cuda) - 3.0).to(dtype),
+            (0.5 * torch.randn(h, generator=g, device=cuda) + 1.0).to(dtype),
+            (1.0 + 0.1 * torch.randn(h, generator=g, device=cuda)).to(dtype),
+            torch.randn((rows, h, p, n), generator=g, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SSD_SIZES + [(2, 24, 12)], ids=["tiny", "published", "narrow"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_matches_its_twin(cuda, dtype, s, size):
+    """ssd_chunk against its twin ref.ssd_chunk_plain (the conv and SiLU,
+    then the chunked recurrence; y and the last state), on strided views
+    as the model passes them, ragged chunks included; float32 also against
+    the conv then the step-by-step ref.ssd_ref; two calls equal. "narrow"
+    (N 12) stages bf16 rows element by element, the others by 16-byte
+    vectors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as sc
+
+    g = torch.Generator(device=cuda).manual_seed(s)
+    h, p, n = size
+    args = _ssd_chunk_args(cuda, g, 2, s, h, p, n, dtype)
+    before = ops.launch_counts()
+    y, last = ops.ssd_chunk(*args, state_size=n)
+    assert ops.launch_counts()["ssd_chunk"] == before["ssd_chunk"] + 1
+    want, want_last = ref.ssd_chunk_plain(*args, state_size=n)
+    torch.testing.assert_close(y.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(last, want_last, atol=TOL[dtype], rtol=TOL[dtype])
+    if dtype == torch.float32:
+        xbc, w, bias, dt, dt_bias, a_log, d = args
+        x, bm, cm = ref.ssd_conv(xbc, w, bias, h, n)
+        seq_y, seq_last = ref.ssd_ref(x, dt, dt_bias, a_log, bm, cm, d)
+        torch.testing.assert_close(y, seq_y, atol=TOL[dtype], rtol=TOL[dtype])
+        torch.testing.assert_close(last, seq_last, atol=TOL[dtype], rtol=TOL[dtype])
+    y2, last2 = sc.ssd_chunk(*args, state_size=n)
+    assert torch.equal(y, y2) and torch.equal(last, last2)
+    y3, none = sc.ssd_chunk(*args, state_size=n, last_state=False)
+    assert none is None and torch.equal(y, y3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SSD_SIZES, ids=["tiny", "published"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_step_matches_its_twin_and_holds_rows(cuda, dtype, size):
+    """ssd_step against ref.ssd_step_plain over 32 rows, every third held:
+    y, the state and the conv window; a held row's states are torch.equal
+    to before the step and its y is 0; two calls equal."""
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    rows = 32
+    xbc, dt, conv, w, b, bias, alog, d, state = _ssd_step_args(cuda, g, rows, *size, dtype)
+    active = torch.arange(rows, device=cuda) % 3 != 0
+    conv0, state0 = conv.clone(), state.clone()
+    conv_p, state_p = conv.clone(), state.clone()
+    y = ops.ssd_step(xbc, dt, conv, w, b, bias, alog, d, state, active)
+    want = ref.ssd_step_plain(xbc, dt, conv_p, w, b, bias, alog, d, state_p, active)
+    torch.testing.assert_close(y.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(state, state_p, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(conv, conv_p, atol=TOL[dtype], rtol=TOL[dtype])
+    held = ~active
+    assert torch.equal(state[held], state0[held]) and torch.equal(conv[held], conv0[held])
+    assert float(y[held].abs().max()) == 0.0
+    conv_r, state_r = conv0.clone(), state0.clone()
+    y_r = ops.ssd_step(xbc, dt, conv_r, w, b, bias, alog, d, state_r, active)
+    assert torch.equal(y, y_r) and torch.equal(state, state_r) and torch.equal(conv, conv_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_rownorm_matches_its_chain(cuda, dtype):
+    """The row norm's gated form, RMSNorm(x * silu(gate)), against the
+    plain chain, the gate a strided view; the ungated launch unchanged."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    proj = torch.randn((300, 2 * 512 + 24), generator=g, device=cuda).to(dtype)
+    x = torch.randn((300, 512), generator=g, device=cuda).to(dtype)
+    w = (0.1 * torch.randn(512, generator=g, device=cuda)).to(dtype)
+    gate = proj[:, :512]
+    got = ops.rownorm(x, w, eps=1e-5, center=False, gate=gate)
+    want = rownorm_plain(x, w, eps=1e-5, center=False, gate=gate)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    plain = ops.rownorm(x, w, eps=1e-5, center=False)
+    assert not torch.equal(plain, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_active_holds_rows(cuda, dtype):
+    """wkv6's decode step with an active mask, in place on its arena state:
+    stepped rows as the unmasked kernel gives them, held rows' state
+    torch.equal to before and their output 0."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, h, k = 6, 4, 64
+    r, kk, v = (torch.randn((b, 1, h, k), generator=g, device=cuda).to(dtype) for _ in range(3))
+    w = torch.rand((b, 1, h, k), generator=g, device=cuda) * 0.5 + 0.4
+    u = torch.randn((h, k), generator=g, device=cuda).to(dtype)
+    state = torch.randn((b, h, k, k), generator=g, device=cuda)
+    active = torch.tensor([True, False, True, False, False, True], device=cuda)
+    want, want_state = wk.wkv6(r, kk, v, w, u, state.clone())
+    before = state.clone()
+    out, new = ops.wkv6(r, kk, v, w, u, state, state_out=state, active=active)
+    assert new.data_ptr() == state.data_ptr()
+    assert torch.equal(out[active], want[active]) and torch.equal(state[active], want_state[active])
+    assert torch.equal(state[~active], before[~active]) and float(out[~active].abs().max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-4.0-h-micro", "rwkv6-1.6b", "recurrentgemma-9b"])
+def test_held_rows_state_unchanged_by_a_step(cuda, arch):
+    """Leased rows a decode replay holds (no frame this step) keep every
+    recurrent leaf torch.equal to before the step; stepped rows move."""
+    eng = _graph_engine(cuda, arch, torch.bfloat16)
+    slots = eng.alloc_slots(arch, GSEQ, 5, start_pos=3)
+    arena = eng.arena(arch, GSEQ)
+    for _ in range(2):  # the first call runs eagerly and captures; then replays
+        eng.dispatch(arch, (GSEQ,), 5, "decode", slots=slots,
+                     payload={s: 5 + s for s in slots}).wait()
+    held, stepped = [slots[1], slots[3]], [slots[0], slots[2], slots[4]]
+    recurrent = [(name, t) for e in arena.cache["super"] + arena.cache["tail"]
+                 for name, t in e.items() if name not in ("k", "v", "pos")]
+    snap = [t.clone() for _, t in recurrent]
+    eng.dispatch(arch, (GSEQ,), 5, "decode", slots=slots, payload={s: 9 for s in slots},
+                 step_rows=stepped).wait()
+    axis = lambda t: 1 if any(t is u for e in arena.cache["super"] for u in e.values()) else 0
+    for (name, t), old in zip(recurrent, snap):
+        ax = axis(t)
+        assert torch.equal(t.index_select(ax, torch.tensor(held, device=cuda)),
+                           old.index_select(ax, torch.tensor(held, device=cuda))), name
+    assert any(not torch.equal(t, old) for (_, t), old in zip(recurrent, snap))
+

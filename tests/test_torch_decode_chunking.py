@@ -160,13 +160,12 @@ def _close(got, want, tol=2e-3):
 def test_chunk_matches_jax_decode_chunk(arch):
     """The port's chunk against the JAX engine's on the same leases,
     payloads and step rows: logits, arena leaves and cursors at 2e-3 on
-    live rows. Rows idle at some steps. Past an attention layer an idle
-    row's state is garbage in both packages, and different garbage (a dead
-    row's attention is exact 0 in the port, the mean of V in the
-    reference; ROADMAP.md §C), so for recurrentgemma a row that has idled
-    is compared up to its swa layer only (the superblock's leaves).
-    granite's idle-step KV write lands at the frozen cursor and is
-    overwritten by the row's next step; rwkv6 has no attention."""
+    live rows. Rows idle at some steps. The port holds an idle row's
+    recurrent state, the reference advances it on a phantom zero token
+    (ROADMAP.md, "Deliberate departures"), so for the recurrent archs a
+    row is compared only until it first idles. granite's idle-step KV
+    write lands at the frozen cursor and is overwritten by the row's next
+    step, so every live row is compared."""
     cfg = tiny(arch, **ARCHS[arch])
     jeng = JEngine({arch: jtiny(arch, **ARCHS[arch])}, max_slots=M, chunk_depth=4)
     params = interop.params_from_numpy(cfg, jax.tree.map(np.asarray, jeng.params[arch]),
@@ -180,7 +179,7 @@ def test_chunk_matches_jax_decode_chunk(arch):
     assert list(jeng.arena(arch, SEQ).live) == live == [0, 2, 3, 4, 6]
     rows_plan = [None, [0, 2, 4, 6], [0, 3], None]
     payloads = _payloads(live, rows_plan, 7)
-    recurrent_tail = arch == "recurrentgemma-9b"
+    recurrent = arch != MID
     idled = set()
     for _ in range(2):
         tl = teng.decode_chunk(arch, SHAPE, len(live), 4, slots=live, payloads=payloads,
@@ -189,7 +188,7 @@ def test_chunk_matches_jax_decode_chunk(arch):
                                           payloads=payloads, step_rows=rows_plan).wait())
         for i, rows in enumerate(rows_plan):
             rows = live if rows is None else rows
-            compared = [r for r in rows if not (recurrent_tail and r in idled)]
+            compared = [r for r in rows if not (recurrent and r in idled)]
             _close(tl[i][compared], jl[i][compared])
             idled |= set(live) - set(rows)
     assert idled == {2, 3, 4, 6}
@@ -199,7 +198,7 @@ def test_chunk_matches_jax_decode_chunk(arch):
     tcache, jcache = teng.arena(arch, SEQ).cache, jeng.arena(arch, SEQ).cache
     for part in ("super", "tail"):
         axis = 1 if part == "super" else 0
-        rows = sorted(set(live) - idled) if recurrent_tail and part == "tail" else live
+        rows = sorted(set(live) - idled) if recurrent else live
         for te, je in zip(tcache[part], jcache[part]):
             for name, leaf in te.items():
                 _close(leaf.index_select(axis, torch.tensor(rows)),

@@ -209,9 +209,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     a = torch.zeros((1, 4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         rb.rglru_bwd(a, a, a)
-    assert (dk.launches, fk.launches) == before
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import ssd_step as ss
+
+    h = torch.zeros(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        sc.ssd_chunk(torch.zeros((1, 4, 48)), torch.zeros((4, 48)), torch.zeros(48),
+                     torch.zeros((1, 4, 2)), h, h, h, state_size=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_step(torch.zeros((1, 48)), torch.zeros((1, 2)), torch.zeros((1, 3, 48)),
+                    torch.zeros((4, 48)), torch.zeros(48), h, h, h, torch.zeros((1, 2, 8, 16)))
+    assert (dk.launches, fk.launches, sc.launches, ss.launches) == before + (0, 0)
     counts = tops.launch_counts()
     assert set(counts) == {"decode_attention", "flash_attention", "flash_attention_bwd", "wkv6",
-                           "wkv6_bwd", "rglru_scan", "rglru_bwd", "rownorm"}
+                           "wkv6_bwd", "rglru_scan", "rglru_bwd", "rownorm", "ssd_chunk",
+                           "ssd_step"}
     assert (counts["decode_attention"], counts["flash_attention"]) == before
     assert counts["wkv6_bwd"] == counts["rglru_bwd"] == 0

@@ -20,6 +20,7 @@ from repro.models import kvcache as jkv
 from repro.models import layers as jl
 from repro.models import model_for as jmodel_for
 from repro_torch import interop
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, tiny
 from repro_torch.models import attention as tattn
 from repro_torch.models import kvcache as tkv
@@ -91,10 +92,15 @@ def test_configs_copied_as_data():
     from repro_torch.configs.registry import ARCHS, SHAPES
 
     assert set(ARCHS) == set(JARCHS)
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     for arch, cfg in ARCHS.items():
         a = dataclasses.asdict(cfg)
         b = dataclasses.asdict(JARCHS[arch])
-        assert a == b, arch
+        # The port's own fields (Mamba-2 sizes, Granite's multipliers) sit
+        # at their defaults, which compute what the reference does.
+        assert {k: v for k, v in a.items() if k in b} == b, arch
+        assert {k: v for k, v in a.items() if k not in b} == {
+            k: defaults[k] for k in a if k not in b}, arch
     assert get_config(MID).dtype == torch.bfloat16
     assert tiny(MID).dtype == torch.float32
     assert SHAPES["decode_32k"].seq_len == 32768

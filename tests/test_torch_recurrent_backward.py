@@ -289,8 +289,8 @@ def test_only_decode_attention_refuses_a_gradient():
 def _through_plain_pair(monkeypatch):
     """Route ops.wkv6 / ops.rglru_scan (CPU tensors) through the plain
     forward + plain backward Functions: the kernels' structure."""
-    def wkv6(r, k, v, w, u, state=None, *, state_out=None):
-        assert state_out is None
+    def wkv6(r, k, v, w, u, state=None, *, state_out=None, active=None):
+        assert state_out is None and active is None
         return _PlainWKV6.apply(r, k, v, w, u, state)
 
     monkeypatch.setattr(ops, "wkv6", wkv6)
